@@ -1,0 +1,466 @@
+"""Selected-CI basis expansion with PT2 importance (stage 3).
+
+Counterpart of ``flow_guided_krylov_tpu/krylov/residual_expansion.py``,
+single device and single word per spin channel:
+
+* :class:`SelectedCIExpander` — one round: diagonalize the current basis
+  (host float64), accumulate signed couplings <i|H|Phi> = sum_j c_j <i|H|j>
+  over all external connected determinants, score
+  eps_i = |<i|H|Phi>|^2 / |E - E_i|, add the top-k, rediagonalize, and
+  reject the round if the energy rose.
+* :func:`iterative_residual_expansion` — the loop with stagnation-based
+  early stopping.
+
+The host scoring path is the JAX package's NumPy code, so host-scored
+trajectories are identical in both packages.  The device scoring block
+(:meth:`SelectedCIExpander._pt2_topk_device`) runs in torch on the
+Hamiltonian's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..hamiltonians.base import Hamiltonian
+from ..ops.bits import keys_device, to_device, to_host
+
+__all__ = ["ResidualExpansionConfig", "SelectedCIExpander",
+           "iterative_residual_expansion"]
+
+
+def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
+    """(unique_keys, first_index, inverse|None) of uint64 keys via one
+    stable argsort and a grouped cumsum (cheaper than ``np.unique``'s
+    int64-heavy internals)."""
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    flag = np.empty(len(sk), bool)
+    if len(sk):
+        flag[0] = True
+        np.not_equal(sk[1:], sk[:-1], out=flag[1:])
+    uniq = sk[flag]
+    first_idx = order[flag]
+    inverse = None
+    if return_inverse:
+        inverse = np.empty(len(keys), np.int32)
+        inverse[order] = np.cumsum(flag, dtype=np.int32) - np.int32(1)
+    return uniq, first_idx, inverse
+
+
+@dataclass
+class ResidualExpansionConfig:
+    """Expansion knobs (the JAX package's names and defaults)."""
+    configs_per_iteration: int = 100
+    residual_threshold: float = 1e-4
+    max_iterations: int = 10
+    stagnation_threshold: float = 5e-5    # 0.05 mHa
+    stagnation_patience: int = 2
+    max_basis_size: int = 4096
+    coefficient_threshold: float = 1e-6   # |c_j| cutoff for source states
+
+
+class SelectedCIExpander:
+    """PT2-scored Selected-CI expansion over packed determinants.
+
+    * repeated diagonalizations of an unchanged basis hit a fingerprint
+      cache (the end-of-round solve is the next round's start-of-round);
+    * the projected sparse H grows incrementally: only the newly added
+      rows' connections are enumerated per round;
+    * PT2 candidate scoring runs on the host in f64, or on the device
+      (sort, segment-sum, top-K) once a round's source batch passes
+      ``DEVICE_SCORING_MIN_ELEMS`` connection evaluations.
+    """
+
+    # the JAX package's crossover, sized for TPU compile and transfer
+    # costs; not yet measured on a GPU
+    DEVICE_SCORING_MIN_ELEMS = 2_000_000
+
+    def __init__(self, hamiltonian: Hamiltonian,
+                 config: Optional[ResidualExpansionConfig] = None,
+                 use_device_scoring: Optional[bool] = None):
+        self.h = hamiltonian
+        self.config = config or ResidualExpansionConfig()
+        self._last_coeffs: Optional[np.ndarray] = None
+        self.use_device_scoring = use_device_scoring
+        # fingerprint -> (energy, coeffs) for the last few bases seen
+        self._diag_cache: Dict[bytes, Tuple[float, np.ndarray]] = {}
+        # incremental projected-H cache: consolidated prefix CSR + pending
+        # per-round staircase blocks [(row_offset, B, B.T, D), ...]
+        self._inc_keys: Optional[np.ndarray] = None
+        self._inc_H = None
+        self._pend: list = []
+        self._pt2_row_cap: Optional[int] = None
+        # cumulative wall per phase (diag = host eigensolve incl. the
+        # incremental CSR growth; score = PT2 candidate scoring)
+        self.timings: Dict[str, float] = {"diag": 0.0, "score": 0.0,
+                                          "diag_build": 0.0}
+
+    # ------------------------------------------------------------------
+
+    def _projected_sparse(self, basis: np.ndarray, keys: np.ndarray):
+        """Symmetric H over ``basis`` as a matvec operator, grown blockwise
+        when the previous basis is a prefix (the iterative-expansion
+        invariant).  Each round builds only its own (B, D) staircase
+        blocks; the blocks fold into the prefix CSR every 16 rounds."""
+        import scipy.sparse as sp
+
+        n = len(basis)
+        if self._inc_H is not None:
+            m = len(self._inc_keys)
+            if n >= m and np.array_equal(keys[:m], self._inc_keys):
+                if n > m:
+                    new = basis[m:]
+                    n_new = n - m
+                    order = np.argsort(keys)
+                    sorted_keys = keys[order]
+                    from ..ops.native_conn import conn_hits_native
+                    nat = conn_hits_native(self.h, new, sorted_keys)
+                    if nat is not None:
+                        rows, spos, vals = nat
+                        cols = order[spos]
+                    else:
+                        conn, elems = self.h.connections_np(new)
+                        ck = self.h.keys(conn.reshape(-1, conn.shape[-1]))
+                        pos = np.clip(np.searchsorted(sorted_keys, ck),
+                                      0, n - 1)
+                        hit = sorted_keys[pos] == ck
+                        rows = np.repeat(np.arange(n_new),
+                                         conn.shape[1])[hit]
+                        cols = order[pos[hit]]
+                        vals = elems.reshape(-1)[hit]
+                    old = cols < m
+                    B = sp.coo_matrix((vals[old], (rows[old], cols[old])),
+                                      shape=(n_new, m)).tocsr()
+                    D = sp.coo_matrix(
+                        (vals[~old], (rows[~old], cols[~old] - m)),
+                        shape=(n_new, n_new))
+                    D = (0.5 * (D + D.T)
+                         + sp.diags(self.h.diagonal_np(new))).tocsr()
+                    self._pend.append((m, B, B.T.tocsr(), D))
+                    self._inc_keys = keys.copy()
+                    if len(self._pend) >= 16:
+                        self._consolidate()
+                return self._operator()
+            if n < m and np.array_equal(keys, self._inc_keys[:n]):
+                # variational rejection reverted the basis: restrict
+                self._consolidate()
+                self._inc_H = self._inc_H[:n, :n].tocsr()
+                self._inc_keys = keys.copy()
+                return self._inc_H
+
+        M = self.h.to_sparse(basis)
+        self._inc_H = ((M + M.T) * 0.5).tocsr()
+        self._pend = []
+        self._inc_keys = keys.copy()
+        return self._inc_H
+
+    def _consolidate(self) -> None:
+        """Fold the pending staircase blocks into the prefix CSR."""
+        if not self._pend:
+            return
+        import scipy.sparse as sp
+        h0 = self._inc_H.tocoo()
+        rs, cs, vs = [h0.row], [h0.col], [h0.data]
+        n = self._inc_H.shape[0]
+        for a, B, _, D in self._pend:
+            nb = D.shape[0]
+            b = B.tocoo()
+            rs += [a + b.row, b.col]
+            cs += [b.col, a + b.row]
+            vs += [b.data, b.data]
+            d = D.tocoo()
+            rs.append(a + d.row)
+            cs.append(a + d.col)
+            vs.append(d.data)
+            n = max(n, a + nb)
+        self._inc_H = sp.coo_matrix(
+            (np.concatenate(vs),
+             (np.concatenate(rs), np.concatenate(cs))),
+            shape=(n, n)).tocsr()
+        self._pend = []
+
+    def _operator(self):
+        """The current projected H: the prefix CSR when nothing is
+        pending, else a LinearOperator streaming prefix + blocks."""
+        if not self._pend:
+            return self._inc_H
+        import scipy.sparse.linalg as spla
+        H0 = self._inc_H
+        m0 = H0.shape[0]
+        pend = list(self._pend)
+        n = pend[-1][0] + pend[-1][3].shape[0]
+
+        def mv(x):
+            x = np.asarray(x, np.float64).reshape(-1)
+            y = np.zeros(n, np.float64)
+            y[:m0] = H0 @ x[:m0]
+            for a, B, BT, D in pend:
+                nb = D.shape[0]
+                y[a:a + nb] += B @ x[:a] + D @ x[a:a + nb]
+                y[:a] += BT @ x[a:a + nb]
+            return y
+
+        return spla.LinearOperator((n, n), matvec=mv, dtype=np.float64)
+
+    def _diagonalize(self, basis: np.ndarray) -> Tuple[float, np.ndarray]:
+        """Ground state of H projected on basis (host f64), warm-started
+        with the previous round's eigenvector."""
+        t0 = time.perf_counter()
+        try:
+            return self._diagonalize_timed(basis)
+        finally:
+            self.timings["diag"] += time.perf_counter() - t0
+
+    def _diagonalize_timed(self, basis: np.ndarray
+                           ) -> Tuple[float, np.ndarray]:
+        keys = self.h.keys(basis)
+        fp = keys.tobytes()
+        hit = self._diag_cache.get(fp)
+        if hit is not None:
+            self._last_coeffs = hit[1]
+            return hit
+
+        v0 = None
+        prev = self._last_coeffs
+        if prev is not None and len(prev) <= len(basis):
+            v0 = np.zeros(len(basis))
+            v0[:len(prev)] = prev
+
+        if len(basis) > 2048:
+            import scipy.sparse.linalg as spla
+            tb = time.perf_counter()
+            M = self._projected_sparse(basis, keys)
+            self.timings["diag_build"] += time.perf_counter() - tb
+            if v0 is not None:
+                # warm-started Davidson, eigsh when it does not converge;
+                # eigenvalue error ~ rnorm^2 / gap, so tol 1e-7 is far
+                # below the 1e-6 Ha convergence test
+                from ..postprocessing.eigensolver import DavidsonSolver
+                e, vec = None, None
+                dav = DavidsonSolver(tol=1e-7)
+                dvals, dvecs = dav.solve(
+                    lambda v: M @ v, self.h.diagonal_np(basis), v0=v0)
+                if dav.converged:
+                    e, vec = float(dvals[0]), dvecs[:, 0]
+                if e is None:
+                    vals, vecs = spla.eigsh(M, k=1, which="SA", v0=v0,
+                                            tol=1e-10)
+                    e, vec = float(vals[0]), vecs[:, 0]
+            else:
+                vals, vecs = spla.eigsh(M, k=2, which="SA")
+                idx = np.argsort(vals)
+                e, vec = float(vals[idx][0]), vecs[:, idx][:, 0]
+        else:
+            vals, vecs = self.h.exact_ground_state(basis, k=1, v0=v0)
+            e, vec = float(vals[0]), vecs[:, 0]
+        self._last_coeffs = vec
+        if len(self._diag_cache) > 4:
+            self._diag_cache.clear()
+        self._diag_cache[fp] = (e, vec)
+        return e, vec
+
+    # ------------------------------------------------------------------
+    # PT2 scoring
+    # ------------------------------------------------------------------
+
+    def _pt2_topk_device(self, src: np.ndarray, src_c: np.ndarray
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Device block: connections of all sources, signed coupling
+        accumulation per unique target (int64 key sort + segment-sum),
+        exact top-K by coupling^2.  Returns host (cand (K', 2) uint32,
+        coupling (K',) float64).
+
+        Every returned row carries either the full accumulated coupling of
+        its key within its block (one representative row per key) or 0,
+        so the host merge sums rows grouped by key — exact across blocks.
+        The segment-sum uses ``index_add_``, whose float32 atomics on CUDA
+        add in no fixed order (couplings may differ in the last bits from
+        run to run).
+        """
+        h = self.h
+        dev = h.device
+        C = h.n_connections
+        c = self.config
+        if self._pt2_row_cap is None:
+            from ..utils.memory import MemoryBudget
+            self._pt2_row_cap = MemoryBudget.for_device(dev).pt2_score_rows(C)
+        # K covers every internal det (<= max_basis_size) that can crowd
+        # the coupling^2 ranking, plus a wide margin of externals for the
+        # final rescore with the |E - E_i| denominator
+        K_max = c.max_basis_size + 16 * c.configs_per_iteration
+        cands, couplings = [], []
+        for i in range(0, len(src), self._pt2_row_cap):
+            rows = to_device(src[i:i + self._pt2_row_cap], dev)
+            coeff = torch.as_tensor(src_c[i:i + self._pt2_row_cap],
+                                    dtype=torch.float32, device=dev)
+            conn, elems = h.connections_device(rows)
+            words = conn.reshape(-1, 2)
+            contrib = (elems * coeff[:, None]).reshape(-1)
+            key, order = torch.sort(keys_device(words))
+            contrib = contrib[order]
+            first = torch.ones_like(key, dtype=torch.bool)
+            first[1:] = key[1:] != key[:-1]
+            seg = torch.cumsum(first, 0) - 1
+            coupling = torch.zeros_like(contrib).index_add_(0, seg,
+                                                            contrib)[seg]
+            score = torch.where(first, coupling * coupling,
+                                torch.full_like(coupling, -1.0))
+            sc, idx = torch.topk(score, min(K_max, score.numel()))
+            # non-first duplicate rows (score -1) carry 0 so the host's
+            # grouped sum never double-counts a key
+            cands.append(to_host(words[order[idx]]))
+            couplings.append(torch.where(sc >= 0.0, coupling[idx],
+                                         torch.zeros_like(sc))
+                             .double().cpu().numpy())
+        return np.concatenate(cands), np.concatenate(couplings)
+
+    def _pt2_candidates(self, basis: np.ndarray, coeffs: np.ndarray,
+                        energy: float
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Return (candidate dets (M, 2), PT2 scores (M,))."""
+        t0 = time.perf_counter()
+        try:
+            return self._pt2_candidates_timed(basis, coeffs, energy)
+        finally:
+            self.timings["score"] += time.perf_counter() - t0
+
+    def _pt2_candidates_timed(self, basis: np.ndarray, coeffs: np.ndarray,
+                              energy: float
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        c = self.config
+        sig = np.abs(coeffs) > c.coefficient_threshold
+        if not sig.any():
+            sig = np.abs(coeffs) >= np.abs(coeffs).max()
+        src = basis[sig]
+        src_c = coeffs[sig]
+
+        use_device = self.use_device_scoring
+        if use_device is None:
+            use_device = (len(src) * self.h.n_connections
+                          >= self.DEVICE_SCORING_MIN_ELEMS)
+
+        if use_device:
+            cand_all, coupling_all = self._pt2_topk_device(src, src_c)
+            keys = self.h.keys(cand_all)
+            # grouped SUM per key: duplicate rows carry 0 by construction,
+            # and per-block partial couplings of one key add up to the
+            # exact coupling
+            uniq, first_idx, inverse = _sorted_unique(keys,
+                                                      return_inverse=True)
+            coupling_all = np.bincount(inverse, weights=coupling_all,
+                                       minlength=len(uniq))
+            cand_all = cand_all[first_idx]
+            keys = uniq
+        else:
+            conn, elems = self.h.connections_np(src)      # (S,C,2), (S,C)
+            flat = conn.reshape(-1, conn.shape[-1])
+            contrib = (elems * src_c[:, None]).reshape(-1)  # c_j * <i|H|j>
+            keys_f = self.h.keys(flat)
+            uniq_keys, first_idx, inverse = _sorted_unique(
+                keys_f, return_inverse=True)
+            coupling_all = np.bincount(inverse, weights=contrib,
+                                       minlength=len(uniq_keys))
+            cand_all = flat[first_idx]
+            keys = uniq_keys
+
+        basis_keys = np.sort(self.h.keys(basis))
+        pos = np.clip(np.searchsorted(basis_keys, keys), 0,
+                      len(basis_keys) - 1)
+        external = (basis_keys[pos] != keys) & (coupling_all != 0.0)
+
+        cand = cand_all[external]
+        coupling = coupling_all[external]
+        if len(cand) == 0:
+            return np.empty((0, basis.shape[1]), np.uint32), np.empty(0)
+
+        diag = self.h.diagonal_np(cand)
+        denom = np.abs(energy - diag) + 1e-12
+        scores = coupling ** 2 / denom
+        return cand, scores
+
+    def expand_basis(self, basis: np.ndarray) -> Dict:
+        """One expansion round with variational rejection."""
+        c = self.config
+        basis = np.atleast_2d(np.asarray(basis, np.uint32))
+        e0, coeffs = self._diagonalize(basis)
+
+        room = c.max_basis_size - len(basis)
+        n_add = max(0, min(c.configs_per_iteration, room))
+        if n_add == 0:
+            return {"basis": basis, "energy": e0, "n_added": 0,
+                    "accepted": False, "reason": "basis at capacity"}
+
+        cand, scores = self._pt2_candidates(basis, coeffs, e0)
+        keep = scores > c.residual_threshold ** 2
+        cand, scores = cand[keep], scores[keep]
+        if len(cand) == 0:
+            return {"basis": basis, "energy": e0, "n_added": 0,
+                    "accepted": False, "reason": "no candidates above threshold"}
+
+        top = np.argsort(-scores)[:n_add]
+        new_basis = np.concatenate([basis, cand[top]], axis=0)
+        e1, _ = self._diagonalize(new_basis)
+
+        if e1 > e0 + 1e-10:
+            # variational violation: adding states must not raise the energy
+            return {"basis": basis, "energy": e0, "n_added": 0,
+                    "accepted": False, "reason": "variational violation",
+                    "rejected_energy": e1}
+        return {"basis": new_basis, "energy": e1, "n_added": int(len(top)),
+                "accepted": True, "pt2_correction": float(scores[top].sum())}
+
+
+def iterative_residual_expansion(hamiltonian: Hamiltonian,
+                                 initial_basis: np.ndarray,
+                                 config: Optional[ResidualExpansionConfig] = None,
+                                 verbose: bool = False) -> Dict:
+    """Loop expansion rounds with stagnation-based early stopping."""
+    cfg = config or ResidualExpansionConfig()
+    basis = np.atleast_2d(np.asarray(initial_basis, np.uint32))
+    # never let a large seed basis turn expansion into a no-op — but only
+    # when the seed actually crowds the cap
+    if cfg.max_basis_size < len(basis) + cfg.configs_per_iteration:
+        needed = len(basis) + cfg.max_iterations * cfg.configs_per_iteration
+        cfg = dataclasses.replace(cfg, max_basis_size=needed)
+    expander = SelectedCIExpander(hamiltonian, cfg)
+    energies = []
+    best_energy = np.inf
+    best_basis = basis
+    stall = 0
+    for it in range(cfg.max_iterations):
+        out = expander.expand_basis(basis)
+        e = out["energy"]
+        energies.append(e)
+        if e < best_energy - 1e-12:
+            improvement = best_energy - e
+            best_energy, best_basis = e, out["basis"]
+        else:
+            improvement = 0.0
+        basis = out["basis"]
+        if verbose:
+            t = expander.timings
+            print(f"  residual iter {it}: E={e:.8f} "
+                  f"basis={len(basis)} added={out['n_added']} "
+                  f"accepted={out['accepted']} "
+                  f"[diag {t['diag']:.0f}s score {t['score']:.0f}s]")
+        if not out["accepted"]:
+            break
+        if improvement < cfg.stagnation_threshold:
+            stall += 1
+            if stall >= cfg.stagnation_patience:
+                break
+        else:
+            stall = 0
+    if verbose:
+        t = expander.timings
+        print(f"  [sci timings] diag {t['diag']:.1f} s "
+              f"(H-build {t['diag_build']:.1f} s), "
+              f"pt2-score {t['score']:.1f} s")
+    return {"basis": best_basis, "energy": best_energy,
+            "energies": energies, "n_iterations": len(energies)}

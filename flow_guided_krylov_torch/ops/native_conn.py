@@ -1,0 +1,104 @@
+"""ctypes binding for the native connection-hits kernel
+(``native/conn_hits.cpp``, shared with the JAX package).
+
+Counterpart of ``flow_guided_krylov_tpu/ops/native_conn.py``.  The kernel
+fuses enumeration, sorted-key membership and Slater-Condon values for the
+connections that land in a basis; the projected-H builds use it whenever
+the library is available, and the NumPy mirror otherwise (the JAX
+package's own route, so both packages build the same matrices).
+
+Differences from the JAX loader: the library is built into the port's
+build directory by :func:`..utils.build.build_library` (temporary name,
+then ``os.rename``), a failed compile raises instead of passing silently,
+and an overflowing call is retried chunk by chunk instead of allocating
+the whole result at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..utils.build import build_library
+
+__all__ = ["conn_hits_native"]
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native", "conn_hits.cpp")
+
+# source rows per native call; the result buffer starts at 256 hits a row
+_ROWS_PER_CALL = 1 << 16
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> Optional[ctypes.CDLL]:
+    """The built library, or None where the host has no C++ compiler."""
+    gxx = shutil.which("g++")
+    if gxx is None or not os.path.exists(_SRC):
+        return None
+    lib = build_library("fgk_conn_hits", [_SRC],
+                        [gxx, "-std=c++17", "-O3", "-march=native",
+                         "-shared", "-fPIC"])
+    u64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.fgk_conn_hits.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, u64, u64,
+        ctypes.c_int64, u64, u64,
+        f64, f64, f64, f64,
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        f64,
+    ]
+    lib.fgk_conn_hits.restype = ctypes.c_int64
+    return lib
+
+
+def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Connections of ``new`` dets that land in a SORTED uint64 key array.
+
+    ``h`` is a molecular Hamiltonian exposing ``tables``; ``sorted_keys``
+    is ``np.sort(h.keys(basis))``.  Returns (rows, sorted_positions,
+    values) with values float64, or None when ``h`` has no Slater tables
+    or no compiler is available.
+    """
+    t = getattr(h, "tables", None)
+    if t is None:
+        return None
+    lib = _load()
+    if lib is None:
+        return None
+    new = np.atleast_2d(np.asarray(new, np.uint32))
+    a = np.ascontiguousarray(new[:, 0].astype(np.uint64))
+    b = np.ascontiguousarray(new[:, 1].astype(np.uint64))
+    key_a = np.ascontiguousarray(sorted_keys, np.uint64)
+    key_b = np.zeros(len(key_a), np.uint64)
+    ints = [np.ascontiguousarray(x) for x in (t.h1, t.jj, t.ex, t.h2)]
+    parts = []
+    for start in range(0, len(a), _ROWS_PER_CALL):
+        ca = a[start:start + _ROWS_PER_CALL]
+        cb = b[start:start + _ROWS_PER_CALL]
+        cap = max(1024, 256 * len(ca))
+        while True:
+            rows = np.empty(cap, np.int32)
+            pos = np.empty(cap, np.int64)
+            vals = np.empty(cap, np.float64)
+            total = lib.fgk_conn_hits(
+                t.n_orb, t.n_alpha, t.n_beta, 0, len(ca), ca, cb,
+                len(key_a), key_a, key_b, *ints, cap, rows, pos, vals)
+            if total <= cap:
+                break
+            cap = int(total)     # this chunk's exact count
+        parts.append((rows[:total] + np.int32(start), pos[:total],
+                      vals[:total]))
+    if not parts:
+        return (np.empty(0, np.int32), np.empty(0, np.int64),
+                np.empty(0, np.float64))
+    return tuple(np.concatenate(p) for p in zip(*parts))
