@@ -3,23 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernel from the sources in this
-checkout, holds it against its plain torch version on the card, then
-drives the port's molecular slice on N2/STO-3G (20 qubits, 14,400
-determinants, 609 connections each) through its public entry points:
+Builds the port's hand-written CUDA kernels from the sources in this
+checkout (one ``nvcc`` per source, started together), holds each against
+its plain torch version on the card, then drives the port's two slices
+through their public entry points: the molecular one on N2/STO-3G (20
+qubits, 14,400 determinants, 609 connections each) and the spin-lattice
+one on the transverse-field Ising chain at 24 sites (a 2^24-amplitude
+statevector):
 
 1. device and toolchain report (TF32 must be off);
 2. ELL SpMV kernel vs plain version on two tables: N2's full space
    (14,400 x 609) and a synthetic 11-orbital (5a, 5b) space
    (213,444 x 1,260, random integrals from a seed), B = 1 and 2;
-3. stage 3: HF-seeded Selected-CI to < 1.6 mHa against the port's own FCI
+3. x_sweep kernel vs plain version at n = 24 and 28, forward and
+   reversed, at tiles of 2^13 and 2^14 amplitudes: TFIM-24's low X words
+   and a mixed list (X, XX, YY, a Y with a Z outside the tile);
+4. stage 3: HF-seeded Selected-CI to < 1.6 mHa against the port's own FCI
    oracle, host scoring and then forced device scoring;
-4. stage 4: FlowGuidedSKQD on the stage-3 basis with ELL evolution
+5. stage 4: FlowGuidedSKQD on the stage-3 basis with ELL evolution
    through the kernel, checked against FCI, the stage-3 energy and the
-   f64 scipy propagator; one dense evolve is timed beside an ELL one.
+   f64 scipy propagator; one dense evolve is timed beside an ELL one;
+6. spin SKQD on TFIM-24 (h = 0.5, K = 10, 100k shots, ``auto`` ->
+   Trotter through the x_sweep kernel), checked against the free-fermion
+   energy and for bit-equal samples from a second run with the same seed;
+   then one Heisenberg-hx-20 Trotter evolve on the card against the same
+   evolve on the CPU, which takes the plain route.
 
 Every phase raises on failure (non-zero exit).  The last two lines are
-one JSON object with the kernel's numbers and the result line
+one JSON object with the kernels' numbers and the result line
 ``{"ok": true, "device": {...}}``.  Integrals and the FCI oracle are
 cached under ``.fgk_cache/`` in the checkout (``FGK_INTEGRAL_CACHE``
 overrides it).  Needs no network; imports no JAX.
@@ -32,9 +43,12 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FCI_N2_REF = -107.654121          # results/final_benchmark_all.txt:279
+SWEEP_TOL = 0.0                   # kernel vs plain: same rounding and order
+HEIS_EVOLVE_TOL = 0.0             # card vs CPU: same phase, same rounding
 
 
 def _cmd(args):
@@ -93,24 +107,36 @@ def ell_tables(h):
     return ell
 
 
+def phase_build():
+    """Build every kernel of the port, one nvcc per source, together."""
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.utils.build import BUILD_DIR
+
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    names = ("ell_spmv", "x_sweep")
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = list(pool.map(timed, (ell._library, xs._library)))
+    for name, sec in zip(names, secs):
+        for f in os.listdir(BUILD_DIR):
+            if f.startswith(name) and f.endswith(".log"):
+                with open(os.path.join(BUILD_DIR, f)) as fh:
+                    for line in fh.read().splitlines():
+                        if "registers" in line or "spill" in line:
+                            print(f"ptxas {name}: " + line.strip())
+        print(f"kernel build {name}: {sec:.2f} s (nvcc, sm_90a, in parallel)")
+
+
 def phase_kernel():
     import torch
     from flow_guided_krylov_torch.hamiltonians import (
         create_n2_hamiltonian, create_synthetic_hamiltonian)
     from flow_guided_krylov_torch.ops import ell_spmv as ell
-    from flow_guided_krylov_torch.utils.build import BUILD_DIR
 
-    t0 = time.perf_counter()
-    ell._library()
-    build_s = time.perf_counter() - t0
-    logs = [f for f in os.listdir(BUILD_DIR) if f.startswith("ell_spmv")
-            and f.endswith(".log")]
-    for f in logs:
-        with open(os.path.join(BUILD_DIR, f)) as fh:
-            for line in fh.read().splitlines():
-                if "registers" in line or "spill" in line:
-                    print("ptxas: " + line.strip())
-    print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, h in (("n2", create_n2_hamiltonian("cuda")),
@@ -144,6 +170,64 @@ def phase_kernel():
             rows.append(row)
             print("ell_spmv: " + json.dumps(row))
         del diag, el_t, tgt_t, h
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_words(kind, n, tile_bits):
+    """Word lists (theta, x_mask, z_mask, n_y) inside a 2^tile_bits tile:
+    ``tfim`` is TFIM-24's low X words at half angle (h = 0.5, dt = 0.1/8);
+    ``mixed`` adds XX and YY on neighbouring bits and a single Y whose Z
+    mask reaches the top qubit, outside the tile."""
+    if kind == "tfim":
+        return [(-0.5 * 0.1 / 8 / 2, 1 << q, 0, 0) for q in range(tile_bits)]
+    words = [(0.01 * (q + 1), 1 << q, 0, 0) for q in range(tile_bits)]
+    for q in range(0, tile_bits - 1, 3):
+        m = (1 << q) | (1 << (q + 1))
+        words += [(0.02 * (q + 1), m, 0, 0), (-0.03 * (q + 1), m, m, 2)]
+    words.append((0.05, 1 << 2, (1 << 2) | (1 << (n - 1)), 1))
+    return words
+
+
+def phase_x_sweep():
+    """The x_sweep kernel against its plain version: TFIM-24's word list
+    (the main path's shape) and a mixed list at n = 24 and 28, forward and
+    reversed, at both tile sizes the kernel was tuned between."""
+    import torch
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for n, kinds in ((24, ("tfim", "mixed")), (28, ("mixed",))):
+        re = torch.randn(1 << n, generator=gen, device="cuda")
+        im = torch.randn(1 << n, generator=gen, device="cuda")
+        for kind in kinds:
+            for tile_bits in (13, 14):
+                words = sweep_words(kind, n, tile_bits)
+                for reverse in (False, True):
+                    sweep = xs.make_x_sweep(n, words, tile_bits, reverse)
+                    seq = words[::-1] if reverse else words
+                    plain = xs.x_sweep_reference(re, im, seq, n)
+                    got = sweep(re, im)
+                    torch.cuda.synchronize()
+                    err = max(float((g - p).abs().max())
+                              for g, p in zip(got, plain))
+                    del got, plain
+                    if not err <= SWEEP_TOL:
+                        raise RuntimeError(
+                            f"x_sweep n={n} {kind} T={tile_bits} "
+                            f"reverse={reverse}: {err} > {SWEEP_TOL}")
+                    ms = _median_ms(lambda: sweep(re, im), 20)
+                    plain_ms = _median_ms(
+                        lambda: xs.x_sweep_reference(re, im, seq, n), 3)
+                    row = {"n": n, "words": kind, "n_words": len(words),
+                           "tile_bits": tile_bits, "reverse": reverse,
+                           "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms,
+                           "GB_per_s": 16.0 * (1 << n) / (ms / 1e3) / 1e9}
+                    rows.append(row)
+                    print("x_sweep: " + json.dumps(row))
+        del re, im
         torch.cuda.empty_cache()
     return rows
 
@@ -252,6 +336,169 @@ def phase_slice(device="cuda", molecule="n2"):
     return launches
 
 
+def tfim_free_fermion_energy(n: int, V: float, h: float) -> float:
+    """Exact ground energy of the periodic nearest-neighbour TFIM chain
+    H = -V sum Z_i Z_{i+1} - h sum X_i via Jordan-Wigner free fermions
+    (even-parity / antiperiodic sector, exact for the finite chain);
+    copied from examples/skqd_lattice_validation.py:54-59."""
+    import numpy as np
+    k = (2 * np.arange(n) + 1) * np.pi / n
+    return float(-np.sum(np.sqrt(V ** 2 + h ** 2 - 2 * V * h * np.cos(k))))
+
+
+def phase_spin(device="cuda", n_sites=24, shots=100_000, heis_sites=20):
+    """TFIM-n_sites spin SKQD through ``auto`` -> Trotter, then one
+    Heisenberg-hx evolve on ``device`` against the CPU."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import (
+        HeisenbergHamiltonian, TransverseFieldIsing, pack_spin_state)
+    from flow_guided_krylov_torch.krylov import (
+        SampleBasedKrylovDiagonalization, SKQDConfig)
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    h_field = 0.5
+    e_exact = tfim_free_fermion_energy(n_sites, 1.0, h_field)
+    ham = TransverseFieldIsing(n_sites, V=1.0, h=h_field, periodic=True,
+                               device=device)
+    cfg = SKQDConfig(max_krylov_dim=10, shots_per_krylov=shots,
+                     time_step=0.1, num_trotter_steps=8, lanczos_dim=12,
+                     evolution="auto", seed=0)
+
+    # ---- the main path: TFIM SKQD, counted launches --------------------
+    xs.x_sweep_cuda.launches = 0
+    t0 = time.perf_counter()
+    skqd = SampleBasedKrylovDiagonalization(
+        ham, cfg, initial_state=pack_spin_state(0, n_sites))
+    out = skqd.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = xs.x_sweep_cuda.launches
+    # ---------------------------------------------------------------------
+
+    e = out["final_energy"]
+    res = {"model": f"tfim{n_sites}", "h": h_field,
+           "trotter": skqd.use_trotter,
+           "exact_energy": e_exact, "energy": e,
+           "error_mha": 1000 * (e - e_exact),
+           "basis_size": out["basis_sizes"][-1],
+           "basis_sizes": out["basis_sizes"], "wall_s": wall,
+           "x_sweep_launches": launches}
+    if not skqd.use_trotter:
+        raise RuntimeError("TFIM SKQD did not take the Trotter path")
+    if not np.isfinite(out["energies"]).all():
+        raise RuntimeError(f"non-finite energies {out['energies']}")
+    if not e >= e_exact - 1e-6:
+        raise RuntimeError(f"variational violation: {e} < {e_exact}")
+    if not res["error_mha"] < 10.0:
+        raise RuntimeError(f"TFIM SKQD error {res['error_mha']} mHa >= 10")
+    if device == "cuda" and launches <= 0:
+        raise RuntimeError("TFIM SKQD never launched the x_sweep kernel")
+
+    # ---- breakdown and timings outside the counted run -------------------
+    start = torch.zeros(skqd.dim, device=device)
+    start[0] = 1.0
+    zero = torch.zeros_like(start)
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        skqd._evolve_trotter(start, zero)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    res["warm_evolve_ms"] = 1e3 * statistics.median(walls[1:])
+    t0 = time.perf_counter()
+    for b in out["bases"]:
+        skqd.compute_ground_state_energy(b)
+    res["eigensolves_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        res["evolve_profile"] = profile_evolve(skqd, start, zero)
+    print("spin tfim: " + json.dumps(res))
+    print("reproducibility: " + json.dumps(
+        check_reproducible(skqd, ham, cfg, out["samples"], start, zero)))
+
+    # ---- Heisenberg-hx evolve: card (kernel) vs CPU (plain) -------------
+    neel = sum(1 << i for i in range(0, heis_sites, 2))
+    states = {}
+    for dev in dict.fromkeys((device, "cpu")):   # once when device is cpu
+        s = SampleBasedKrylovDiagonalization(
+            HeisenbergHamiltonian(heis_sites, 1.0, 1.0, 1.0,
+                                  h_x=np.full(heis_sites, 0.3), device=dev),
+            SKQDConfig(evolution="trotter"),
+            initial_state=pack_spin_state(neel, heis_sites))
+        re = torch.zeros(s.dim, device=dev)
+        re[neel] = 1.0
+        before = xs.x_sweep_cuda.launches
+        states[dev] = s._evolve_trotter(re, torch.zeros_like(re))
+        sync()
+        if dev == "cuda" and xs.x_sweep_cuda.launches == before:
+            raise RuntimeError("Heisenberg evolve never launched x_sweep")
+    diff = max(float((a.cpu() - b).abs().max())
+               for a, b in zip(states[device], states["cpu"]))
+    print(f"heisenberg-hx{heis_sites} evolve {device} vs cpu: max abs diff "
+          f"{diff!r} (tolerance {HEIS_EVOLVE_TOL})")
+    if not diff <= HEIS_EVOLVE_TOL:
+        raise RuntimeError(f"Heisenberg evolve {device} vs cpu: {diff}")
+    return res
+
+
+def check_reproducible(skqd, ham, cfg, samples, re, im):
+    """One seed gives one run: an evolve repeated from one start, the
+    sampler's cdf repeated on one evolved state, and a second instance's
+    Krylov samples, all bit for bit.  On the card it also times a draw."""
+    import torch
+    from flow_guided_krylov_torch.krylov import skqd as skqd_mod
+    a = skqd._evolve_trotter(re, im)
+    b = skqd._evolve_trotter(re, im)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError("two evolves from one start differ")
+    prob = a[0] ** 2 + a[1] ** 2
+    gen = torch.Generator(device=prob.device).manual_seed(5)
+    u = torch.rand(cfg.shots_per_krylov, device=prob.device, generator=gen)
+    draws = skqd_mod._sample_idx_cdf(prob, u)
+    for _ in range(9):
+        if not torch.equal(skqd_mod._sample_idx_cdf(prob, u), draws):
+            raise RuntimeError("the sampler drew twice differently")
+    again = type(skqd)(ham, cfg, initial_state=skqd.initial_state)
+    if again.generate_krylov_samples() != samples:
+        raise RuntimeError("a second run with the same seed sampled "
+                           "other configurations")
+    res = {"evolves_equal": True, "draws_equal": True,
+           "samples_equal": True}
+    if prob.is_cuda:
+        res["draw_ms"] = _median_ms(
+            lambda: skqd_mod._sample_idx_cdf(prob, u), 10)
+    return res
+
+
+def profile_evolve(skqd, re, im):
+    """Device time of one warm evolve by kernel, from torch.profiler:
+    the x_sweep kernel, the other kernels, and the device's busy share of
+    the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        skqd._evolve_trotter(re, im)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = ev.device_time_total
+    total = sum(dev_us.values())
+    sweep = sum(v for k, v in dev_us.items() if "x_sweep" in k)
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_ms": wall_ms, "device_ms": total / 1e3,
+            "x_sweep_ms": sweep / 1e3,
+            "busy_share": total / 1e3 / wall_ms if wall_ms else None,
+            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
+
+
 def main():
     os.environ.setdefault("FGK_INTEGRAL_CACHE",
                           os.path.join(ROOT, ".fgk_cache"))
@@ -259,16 +506,29 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     import flow_guided_krylov_torch  # noqa: F401  (fails outside the repo)
+    from flow_guided_krylov_torch.ops.x_sweep import TILE_BITS
     phase_device()
+    phase_build()
     rows = phase_kernel()
+    sweep_rows = phase_x_sweep()
     launches = phase_slice()
+    spin = phase_spin()
     main_row = next(r for r in rows if r["table"] == "n2" and r["B"] == 2)
+    sweep_row = next(r for r in sweep_rows
+                     if r["n"] == 24 and r["words"] == "tfim"
+                     and r["tile_bits"] == TILE_BITS and not r["reverse"])
     kernels = {"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "flow_guided_krylov_torch/csrc/ell_spmv.cu",
         "replaces": "flow_guided_krylov_tpu/ops/pallas_spmv.py:50",
         "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}]}
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}, {
+        "name": "x_sweep", "route": "cuda",
+        "source": "flow_guided_krylov_torch/csrc/x_sweep.cu",
+        "replaces": "flow_guided_krylov_tpu/ops/pallas_trotter.py:66",
+        "launches": spin["x_sweep_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
+        "ms": sweep_row["ms"], "plain_ms": sweep_row["plain_ms"]}]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps(kernels))

@@ -1,9 +1,9 @@
 """Carry the JAX package's state into the port.
 
-The system's "weights" are its integral tables and the ELL structure of
-the subspace Hamiltonian.  These functions take them as NumPy arrays (or
-any object exposing the same fields), so both packages can compute from
-identical inputs; nothing here imports JAX.
+The system's "weights" are its integral tables, the ELL structure of the
+subspace Hamiltonian, and a spin Hamiltonian's couplings.  These functions
+take them as NumPy arrays (or any object exposing the same fields), so both
+packages can compute from identical inputs; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from .ops.excitations import ExcitationSpec
 from .ops.slater import SlaterTables
 
-__all__ = ["tables_from_jax", "ell_from_jax"]
+__all__ = ["tables_from_jax", "ell_from_jax", "spin_hamiltonian_from_jax"]
 
 _TABLE_FIELDS = ("n_orb", "n_alpha", "n_beta", "e_nuc", "h1", "h2", "jj",
                  "ex", "jmat", "kmat", "spec_a", "spec_b", "ab_grid")
@@ -57,3 +57,24 @@ def ell_from_jax(diag: np.ndarray, elems_t: np.ndarray, tgt_t: np.ndarray,
                             device=device)
     return (put(diag, torch.float32), put(elems_t, torch.float32),
             put(tgt_t, torch.int32))
+
+
+def spin_hamiltonian_from_jax(obj: Any, device):
+    """The port's spin Hamiltonian on ``device`` rebuilt from a JAX
+    ``TransverseFieldIsing`` or ``HeisenbergHamiltonian`` (or any object
+    of a class of the same name with the same fields)."""
+    from .hamiltonians.spin import HeisenbergHamiltonian, TransverseFieldIsing
+    kind = type(obj).__name__
+    n = int(obj.n_sites)
+    if kind == "TransverseFieldIsing":
+        return TransverseFieldIsing(n, V=float(obj.V), h=float(obj.h),
+                                    L=int(obj.L), periodic=bool(obj.periodic),
+                                    device=device)
+    if kind == "HeisenbergHamiltonian":
+        return HeisenbergHamiltonian(
+            n, Jx=float(obj.Jx), Jy=float(obj.Jy), Jz=float(obj.Jz),
+            h_x=np.array(obj.h_x, np.float64),
+            h_y=np.array(obj.h_y, np.float64),
+            h_z=np.array(obj.h_z, np.float64),
+            periodic=bool(obj.periodic), device=device)
+    raise TypeError(f"no port counterpart for spin Hamiltonian {kind}")

@@ -1,4 +1,4 @@
-"""Hamiltonians over packed determinants."""
+"""Hamiltonians over packed determinants and spin configurations."""
 
 from .base import Hamiltonian
 from .molecular import (MOLECULE_FACTORIES, MolecularHamiltonian,
@@ -7,6 +7,9 @@ from .molecular import (MOLECULE_FACTORIES, MolecularHamiltonian,
                         create_h2o_hamiltonian, create_lih_hamiltonian,
                         create_n2_hamiltonian, create_nh3_hamiltonian,
                         create_synthetic_hamiltonian, synthetic_integrals)
+from .spin import (HeisenbergHamiltonian, TransverseFieldIsing,
+                   create_heisenberg_hamiltonian, create_tfim_hamiltonian,
+                   extract_coeffs_and_paulis, pack_spin_state, spin_state_int)
 
 __all__ = [
     "Hamiltonian", "MolecularIntegrals", "MolecularHamiltonian",
@@ -16,4 +19,7 @@ __all__ = [
     "create_nh3_hamiltonian", "create_n2_hamiltonian",
     "create_ch4_hamiltonian",
     "synthetic_integrals", "create_synthetic_hamiltonian",
+    "HeisenbergHamiltonian", "TransverseFieldIsing",
+    "create_heisenberg_hamiltonian", "create_tfim_hamiltonian",
+    "extract_coeffs_and_paulis", "pack_spin_state", "spin_state_int",
 ]

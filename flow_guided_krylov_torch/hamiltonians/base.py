@@ -3,7 +3,7 @@
 Counterpart of the host methods of
 ``flow_guided_krylov_tpu/hamiltonians/base.py::Hamiltonian``.
 Configurations are packed uint32 words (``pack_words`` per configuration;
-2 for molecular alpha/beta), and every configuration has exactly
+2 for molecular alpha/beta, 1 for spins), and every configuration has exactly
 ``n_connections`` connections.
 """
 
@@ -24,7 +24,8 @@ class Hamiltonian(ABC):
     """Abstract Hamiltonian over packed-bitstring configurations.
 
     * ``n_sites`` — number of qubits.
-    * ``pack_words`` — uint32 words per configuration (2: alpha, beta).
+    * ``pack_words`` — uint32 words per configuration (2: alpha, beta;
+      1: a spin configuration of up to 31 sites).
     * ``n_connections`` — static per-config connection count.
     * ``diagonal_np(packed)`` — host f64 diagonal elements.
     * ``connections_np(packed)`` — host f64 ((B,C,W) targets, (B,C) elems).
@@ -52,8 +53,13 @@ class Hamiltonian(ABC):
     # ------------------------------------------------------------------
 
     def keys(self, packed: np.ndarray) -> np.ndarray:
-        """(B, 2) uint32 -> (B,) uint64 sort/dedup keys (alpha << 32 | beta)."""
+        """(B, W) uint32 -> (B,) uint64 sort/dedup keys: the word itself
+        at W = 1 (spin configurations), (alpha << 32) | beta at W = 2."""
         packed = np.asarray(packed)
+        if self.pack_words == 1:
+            # a 1-D array is a batch of one-word rows, as in the JAX base
+            return (packed if packed.ndim == 1
+                    else packed[..., 0]).astype(np.uint64)
         if sys.byteorder != "little":
             raise RuntimeError("packed-key uint64 views assume a "
                                "little-endian host")
@@ -64,6 +70,16 @@ class Hamiltonian(ABC):
         kk[:, 0] = flat[:, 1]        # low word: beta
         kk[:, 1] = flat[:, 0]        # high word: alpha
         return kk.view(np.uint64)[:, 0].reshape(packed.shape[:-1])
+
+    def unkey(self, keys: np.ndarray) -> np.ndarray:
+        """(B,) uint64 keys -> (B, W) uint32 packed rows (inverse of
+        :meth:`keys`)."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        if self.pack_words == 1:
+            return keys.astype(np.uint32)[:, None]
+        a = (keys >> np.uint64(32)).astype(np.uint32)
+        b = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return np.stack([a, b], axis=-1)
 
     # ------------------------------------------------------------------
     # Projected matrices (host, float64)

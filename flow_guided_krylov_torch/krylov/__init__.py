@@ -1,5 +1,8 @@
-"""Selected-CI expansion (stage 3) and SKQD (stage 4)."""
+"""Selected-CI expansion (stage 3), SKQD (stage 4) and circuit basis
+sampling."""
 
+from .basis_sampler import (CircuitSamplerConfig, KrylovBasisSampler,
+                            create_circuit_sampler)
 from .residual_expansion import (ResidualExpansionConfig, SelectedCIExpander,
                                  iterative_residual_expansion)
 from .skqd import (EvolutionBudgetError, FlowGuidedSKQD,
@@ -11,4 +14,5 @@ __all__ = [
     "iterative_residual_expansion",
     "SKQDConfig", "SampleBasedKrylovDiagonalization", "FlowGuidedSKQD",
     "EvolutionBudgetError", "lanczos_expm", "lanczos_expm_ell",
+    "CircuitSamplerConfig", "KrylovBasisSampler", "create_circuit_sampler",
 ]

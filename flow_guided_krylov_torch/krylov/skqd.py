@@ -1,16 +1,22 @@
-"""Sample-based Krylov Quantum Diagonalization (stage 4), molecular path.
+"""Sample-based Krylov Quantum Diagonalization (stage 4).
 
-Counterpart of ``flow_guided_krylov_tpu/krylov/skqd.py`` for molecular
-Hamiltonians evolved in the full particle-conserving space (N2/STO-3G:
-1,048,576 qubit states -> 14,400 determinants):
+Counterpart of ``flow_guided_krylov_tpu/krylov/skqd.py`` for two paths:
 
-* :class:`SampleBasedKrylovDiagonalization` — evolve the HF state by
-  exp(-i dt H) on the Hamiltonian's device with an m-step Lanczos
-  propagator (dense ``torch.matmul`` or the ELL SpMV kernel), sample
-  each Krylov state by inverse CDF, and diagonalize H on the cumulative
-  sampled bases on the host in f64.
-* :class:`FlowGuidedSKQD` — combines a given basis with the Krylov bases
-  and tracks variational stability.
+* molecular Hamiltonians evolved in the full particle-conserving space
+  (N2/STO-3G: 1,048,576 qubit states -> 14,400 determinants) by an m-step
+  Lanczos propagator on the Hamiltonian's device (dense ``torch.matmul``
+  or the ELL SpMV kernel);
+* spin lattices of up to 31 sites.  Past ``trotter_threshold`` sites (or
+  with ``evolution="trotter"``) a full 2^n statevector is evolved on the
+  device by a second-order Trotter splitting over the Hamiltonian's Pauli
+  words, the low-bit words through the x_sweep kernel.  Smaller lattices,
+  and magnetization-conserving ones whose sector is small, evolve in an
+  enumerated subspace with the dense or scipy propagator.
+
+:class:`SampleBasedKrylovDiagonalization` samples each Krylov state by
+inverse CDF and diagonalizes H on the cumulative sampled bases on the host
+in f64.  :class:`FlowGuidedSKQD` combines a given basis with the Krylov
+bases and tracks variational stability.
 
 ``evolution="scipy"`` is the float64 host propagator (``expm_multiply``)
 the device propagators are tested against; it runs only when named.
@@ -21,6 +27,7 @@ does not fit, raises.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import comb
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,7 +36,11 @@ import scipy.sparse.linalg as spla
 import torch
 
 from ..hamiltonians.base import Hamiltonian
+from ..hamiltonians.spin import extract_coeffs_and_paulis
+from ..ops.bits import _parity32
 from ..ops.ell_spmv import ell_spmv
+from ..ops.x_sweep import (TILE_BITS, _pauli_masks, _pauli_rotation_pair,
+                           make_x_sweep)
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
@@ -45,11 +56,16 @@ class SKQDConfig:
     """SKQD knobs (the JAX package's names and defaults)."""
     max_krylov_dim: int = 12
     time_step: float = 0.1
+    num_trotter_steps: int = 8          # Trotter substeps per evolve
     shots_per_krylov: int = 100_000
     num_eigenvalues: int = 2
     regularization: float = 1e-8
-    evolution: str = "auto"   # 'auto' | 'dense' | 'ell' | 'scipy'
+    evolution: str = "auto"   # 'auto' | 'dense' | 'ell' | 'scipy' | 'trotter'
     lanczos_dim: int = 30
+    # spin systems beyond this many sites evolve a full 2^n statevector
+    # with second-order Trotter over Pauli words instead of building the
+    # subspace Hamiltonian on the host
+    trotter_threshold: int = 17
     seed: int = 0
     verbose: bool = False
 
@@ -143,16 +159,37 @@ def lanczos_expm_ell(diag: torch.Tensor, elems: torch.Tensor,
 # Sampling
 # ---------------------------------------------------------------------------
 
+# probabilities per row of the sampler's two-level cdf
+_CDF_ROW = 4096
+
+
 def _sample_idx_cdf(prob: torch.Tensor, uniforms: torch.Tensor
                     ) -> torch.Tensor:
     """Multinomial sampling by inverse CDF: cumsum + ``searchsorted`` of
     the uniforms in [0, 1) scaled by the total, without a (shots, dim)
-    intermediate."""
-    cdf = torch.cumsum(prob, 0)
+    intermediate.
+
+    The cdf is summed in a fixed order, so one seed draws the same
+    indices on every run: rows of ``_CDF_ROW`` probabilities are scanned
+    along their last axis, and the row totals are prefixed in float64 on
+    the host.  A 1-D CUDA ``cumsum`` of float32 is not reproducible: its
+    block-wise scan adds the blocks' carries in whatever order they
+    finish."""
+    n = prob.shape[0]
+    # zero-padded to two rows or more: a single row would be a 1-D scan
+    pad = -n % _CDF_ROW + (_CDF_ROW if n <= _CDF_ROW else 0)
+    rows = torch.nn.functional.pad(prob, (0, pad))
+    rows = torch.cumsum(rows.view(-1, _CDF_ROW), 1)
+    ends = np.cumsum(rows[:, -1].double().cpu().numpy())
+    starts = torch.as_tensor(np.concatenate([[0.0], ends[:-1]]),
+                             device=prob.device)
+    cdf = (rows.double() + starts[:, None]).view(-1)[:n]
+    # the uniforms scale in float32, as the JAX package's sampler does;
     # right=True so a draw landing exactly on a cdf plateau boundary
     # (e.g. u == 0.0) can never select a zero-probability index
-    idx = torch.searchsorted(cdf, uniforms * cdf[-1], right=True)
-    return idx.clamp_(0, prob.shape[0] - 1)
+    target = uniforms * cdf[-1].float()
+    idx = torch.searchsorted(cdf, target.double(), right=True)
+    return idx.clamp_(0, n - 1)
 
 
 def _sample_counts_device(psi_re: torch.Tensor, psi_im: torch.Tensor,
@@ -164,34 +201,141 @@ def _sample_counts_device(psi_re: torch.Tensor, psi_im: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Spin subspaces and the statevector Trotter propagator
+# ---------------------------------------------------------------------------
+
+def _sector_states(n: int, k: int) -> np.ndarray:
+    """All n-bit states with popcount k, sorted (the fixed-magnetization
+    sector of a conserving spin Hamiltonian).
+
+    Pascal recursion: states(m, j) = states(m-1, j) followed by
+    states(m-1, j-1) | 1<<(m-1); both halves ascend and the second lies
+    above the first, so the result is sorted by construction."""
+    prev = {0: np.zeros(1, dtype=np.uint32)}          # m = 0
+    for m in range(1, n + 1):
+        cur = {}
+        for j in range(max(0, k - (n - m)), min(k, m) + 1):
+            parts = []
+            if j in prev:
+                parts.append(prev[j])
+            if j - 1 in prev:
+                parts.append(prev[j - 1] + np.uint32(1 << (m - 1)))
+            cur[j] = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        prev = cur
+    if len(prev[k]) != comb(n, k):
+        raise AssertionError(f"sector ({n}, {k}) has {len(prev[k])} states")
+    return prev[k]
+
+
+def _half_phase(diag: List[Tuple[float, int]], n: int, dt_sub: float,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """exp(-i dt_sub/2 * D) as a (cos, -sin) float32 pair over the 2^n
+    states, where D = sum_w c_w (-1)^popcount(k & z_w) sums the diagonal
+    words (c_w, z_w).
+
+    The float32 angles are summed on the device; the cos and sin of each
+    distinct angle are taken in float64 on the host and rounded to
+    float32, as for the rotation angles (``ops/x_sweep._cos_sin_f32``).
+    The phase is then the same on every device, so a Trotter evolve on
+    the card equals the plain one on the CPU bit for bit, and no
+    library's float32 ``cos`` enters it."""
+    idx = torch.arange(1 << n, dtype=torch.int64, device=device)
+    D = torch.zeros(1 << n, dtype=torch.float32, device=device)
+    for c, zm in diag:
+        sign = 1.0 - 2.0 * _parity32(idx & zm).to(torch.float32)
+        D = D + float(np.float32(c)) * sign
+    ang, where = torch.unique(0.5 * dt_sub * D, return_inverse=True)
+    ang = ang.double().cpu().numpy()
+    cos = torch.as_tensor(np.cos(ang).astype(np.float32), device=device)
+    sin = torch.as_tensor(np.sin(ang).astype(np.float32), device=device)
+    return cos[where], -sin[where]
+
+
+def _diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
+              hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re + i im) * (hr + i hi), elementwise."""
+    return re * hr - im * hi, re * hi + im * hr
+
+
+# ---------------------------------------------------------------------------
 # SKQD
 # ---------------------------------------------------------------------------
 
 class SampleBasedKrylovDiagonalization:
-    """Classical SKQD in the full particle-conserving subspace."""
+    """Classical SKQD: in the particle-conserving subspace for molecules;
+    in the magnetization sector, the full space, or (past
+    ``trotter_threshold`` sites) a Trotterized statevector for spins."""
 
     def __init__(self, hamiltonian: Hamiltonian,
                  config: Optional[SKQDConfig] = None,
                  initial_state: Optional[np.ndarray] = None):
-        if not hasattr(hamiltonian, "n_alpha"):
-            raise NotImplementedError("only molecular Hamiltonians are "
-                                      "ported so far")
         self.h = hamiltonian
         self.config = config or SKQDConfig()
         self.device = hamiltonian.device
+        self.is_molecular = hasattr(hamiltonian, "n_alpha")
+        # initial state: HF for molecules, Neel for spins
         if initial_state is None:
-            initial_state = hamiltonian.get_hf_state()
+            if self.is_molecular:
+                initial_state = hamiltonian.get_hf_state()
+            else:
+                neel = sum(1 << i for i in range(0, hamiltonian.n_sites, 2))
+                initial_state = np.array([neel], dtype=np.uint32)
         self.initial_state = np.asarray(initial_state, np.uint32)
 
-        self.subspace = hamiltonian.enumerate_basis()         # (N, 2) uint32
-        self.dim = len(self.subspace)
-        self._keys = self.h.keys(self.subspace)
-        self._order = np.argsort(self._keys)
-        self._sorted_keys = self._keys[self._order]
+        # Magnetization-conserving spin systems (XXZ without transverse
+        # fields) evolve inside the fixed-popcount sector of the initial
+        # state, the spin analog of the particle-conserving subspace.
+        self._sector_n_up: Optional[int] = None
+        if (not self.is_molecular
+                and getattr(hamiltonian, "conserves_magnetization", False)):
+            self._sector_n_up = int(
+                bin(int(self.initial_state.reshape(-1)[0])).count("1"))
+
+        # Large spin systems evolve a full 2^n statevector with Trotterized
+        # Pauli rotations instead of enumerating the space and building a
+        # subspace Hamiltonian: 2^24 (re, im) float32 amplitudes take
+        # 128 MB, where the sparse H would hold 2^24 * n_sites entries.
+        # Trotter error only perturbs which configurations are sampled;
+        # the projected eigensolve is exact either way.  A conserved
+        # sector small enough to enumerate stays on the subspace path.
+        c = self.config
+        n_sites = getattr(hamiltonian, "n_sites", 0)
+        sector_small = False
+        if self._sector_n_up is not None:
+            from ..utils.memory import MemoryBudget
+            sector_dim = comb(n_sites, self._sector_n_up)
+            sector_small = (
+                sector_dim <= (1 << c.trotter_threshold)
+                or sector_dim * (hamiltonian.n_connections + 1)
+                <= MemoryBudget.for_device(self.device)
+                .connection_table_entries())
+        self.use_trotter = (not self.is_molecular) and (
+            c.evolution == "trotter"
+            or (c.evolution == "auto" and n_sites > c.trotter_threshold
+                and not sector_small))
+
+        if self.use_trotter:
+            self.subspace = None
+            self.dim = 1 << n_sites
+            self._keys = self._order = self._sorted_keys = None
+        else:
+            if self.is_molecular:
+                self.subspace = hamiltonian.enumerate_basis()  # (N, 2)
+            elif self._sector_n_up is not None:
+                self.subspace = _sector_states(
+                    n_sites, self._sector_n_up)[:, None]      # (N, 1)
+            else:
+                self.subspace = np.arange(
+                    1 << n_sites, dtype=np.uint32)[:, None]   # (N, 1)
+            self.dim = len(self.subspace)
+            self._keys = self.h.keys(self.subspace)
+            self._order = np.argsort(self._keys)
+            self._sorted_keys = self._keys[self._order]
 
         self._h_sparse: Optional[sp.csr_matrix] = None
         self._h_dense_dev: Optional[torch.Tensor] = None
         self._ell = None
+        self._trotter = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
 
@@ -208,6 +352,10 @@ class SampleBasedKrylovDiagonalization:
     @property
     def subspace_hamiltonian(self) -> sp.csr_matrix:
         """Sparse subspace H (host f64), built once."""
+        if self.subspace is None:
+            raise RuntimeError(
+                "Trotter mode never builds the subspace Hamiltonian "
+                f"(2^{self.h.n_sites} states); use the statevector path")
         if self._h_sparse is None:
             self._h_sparse = self.h.to_sparse(self.subspace)
         return self._h_sparse
@@ -234,6 +382,67 @@ class SampleBasedKrylovDiagonalization:
         entries = self.dim * (self.h.n_connections + 1)
         return entries <= (MemoryBudget.for_device(self.device)
                            .connection_table_entries())
+
+    # ------------------------------------------------------------------
+    # Statevector Trotter propagator (large spin systems)
+    # ------------------------------------------------------------------
+
+    def _trotter_ops(self):
+        """One second-order Trotter substep over the Hamiltonian's Pauli
+        words, built once: diag . sweep(low) . high . reversed(high) .
+        sweep(low, reversed) . diag.
+
+        * diag: every diagonal word (x_mask == 0) folds into one
+          half-phase exp(-i dt/2 * D), a (cos, -sin) float32 pair.
+        * low: the off-diagonal words whose x_mask lies inside the x_sweep
+          tile, 0 < x_mask < 2^min(TILE_BITS, n), at half angle: one
+          ``make_x_sweep`` pass forward and one reversed.
+        * high: the other off-diagonal words, one
+          ``_pauli_rotation_pair`` each, forward then reversed.
+
+        A forward-then-reversed sweep is second order for any order of
+        the words.  When every word is low, this is the JAX package's
+        fused substep; otherwise it is its ``FGK_PALLAS_SWEEP`` order.
+        """
+        if self._trotter is not None:
+            return self._trotter
+        coeffs, words = extract_coeffs_and_paulis(self.h)
+        n = self.h.n_sites
+        masks = [_pauli_masks(w) for w in words]
+        dt_sub = self.config.time_step / max(self.config.num_trotter_steps, 1)
+        diag = [(c, zm) for c, (xm, zm, _) in zip(coeffs, masks) if xm == 0]
+        offd = [(c * dt_sub / 2, xm, zm, ny)
+                for c, (xm, zm, ny) in zip(coeffs, masks) if xm != 0]
+        tile = 1 << min(TILE_BITS, n)
+        low = [w for w in offd if w[1] < tile]
+        high = [w for w in offd if w[1] >= tile]
+        sweep_f = make_x_sweep(n, low)
+        sweep_r = make_x_sweep(n, low, reverse=True)
+        hp_re, hp_im = _half_phase(diag, n, dt_sub, self.device)
+
+        def substep(re, im):
+            re, im = _diag_mul(re, im, hp_re, hp_im)
+            if low:
+                re, im = sweep_f(re, im)
+            for theta, xm, zm, ny in high:
+                re, im = _pauli_rotation_pair(re, im, theta, xm, zm, ny, n)
+            for theta, xm, zm, ny in reversed(high):
+                re, im = _pauli_rotation_pair(re, im, theta, xm, zm, ny, n)
+            if low:
+                re, im = sweep_r(re, im)
+            return _diag_mul(re, im, hp_re, hp_im)
+
+        self._trotter = substep
+        return substep
+
+    def _evolve_trotter(self, re: torch.Tensor, im: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """exp(-i dt H) on a device (re, im) statevector pair, in
+        ``num_trotter_steps`` substeps."""
+        substep = self._trotter_ops()
+        for _ in range(max(self.config.num_trotter_steps, 1)):
+            re, im = substep(re, im)
+        return re, im
 
     # ------------------------------------------------------------------
     # Time evolution
@@ -288,7 +497,12 @@ class SampleBasedKrylovDiagonalization:
 
         ``auto`` picks a device propagator (dense, then ELL) and raises
         :class:`EvolutionBudgetError` when neither fits the device's
-        memory; the host propagator runs only when asked for by name."""
+        memory; the host propagator runs only when asked for by name.
+        Trotter mode has no subspace vector: it evolves the device
+        statevector through :meth:`_evolve_trotter`."""
+        if self.use_trotter:
+            raise RuntimeError("Trotter mode evolves the statevector "
+                               "through _evolve_trotter")
         mode = self.config.evolution
         if self.dim <= 1:
             mode = "scipy"
@@ -303,6 +517,12 @@ class SampleBasedKrylovDiagonalization:
                     f"nor the ELL propagator on {self.device}; set "
                     f"evolution='scipy' to evolve on the host")
         if mode == "ell":
+            if not self.is_molecular:
+                raise NotImplementedError(
+                    "ELL evolution of a spin subspace needs the device "
+                    "table build (_build_ell_device), which comes with the "
+                    "restricted-SKQD slice (ROADMAP Queue 1 item 3); use "
+                    "evolution='dense' or 'scipy'")
             return self._evolve_device_ell(psi)
         if mode == "dense":
             return self._evolve_device(psi)
@@ -325,6 +545,8 @@ class SampleBasedKrylovDiagonalization:
     def generate_krylov_samples(self) -> List[Dict[int, int]]:
         """Sample at every Krylov step k=0..K-1, evolving in between."""
         c = self.config
+        if self.use_trotter:
+            return self._generate_krylov_samples_trotter()
         psi = np.zeros(self.dim, dtype=np.complex128)
         psi[self._index_of(self.initial_state)[0]] = 1.0
         samples = []
@@ -333,6 +555,27 @@ class SampleBasedKrylovDiagonalization:
             if k < c.max_krylov_dim - 1:
                 psi = self.evolve(psi)
                 psi = psi / np.linalg.norm(psi)
+        return samples
+
+    def _generate_krylov_samples_trotter(self) -> List[Dict[int, int]]:
+        """Statevector path: psi stays a device (re, im) float32 pair of
+        2^n amplitudes for the whole Krylov sweep; sampling is cumsum +
+        searchsorted of uniforms from the instance's generator, and the
+        sampled indices are the configurations themselves."""
+        c = self.config
+        start = int(np.atleast_2d(self.initial_state)[0, 0])
+        re = torch.zeros(self.dim, dtype=torch.float32, device=self.device)
+        re[start] = 1.0
+        im = torch.zeros_like(re)
+        samples = []
+        for k in range(c.max_krylov_dim):
+            u = torch.rand(c.shots_per_krylov, generator=self.generator,
+                           device=self.device)
+            idx = _sample_idx_cdf(re ** 2 + im ** 2, u)
+            vals, counts = torch.unique(idx, return_counts=True)
+            samples.append(dict(zip(vals.tolist(), counts.tolist())))
+            if k < c.max_krylov_dim - 1:
+                re, im = self._evolve_trotter(re, im)
         return samples
 
     def build_cumulative_basis(self, samples: List[Dict[int, int]]
@@ -344,7 +587,11 @@ class SampleBasedKrylovDiagonalization:
             for idx, ct in counts.items():
                 seen[idx] = seen.get(idx, 0) + ct
             idxs = np.sort(np.fromiter(seen.keys(), dtype=np.int64))
-            bases.append(self.subspace[idxs])
+            if self.subspace is None:
+                # Trotter mode: sampled indices are the packed configs
+                bases.append(idxs.astype(np.uint32)[:, None])
+            else:
+                bases.append(self.subspace[idxs])
         return bases
 
     # ------------------------------------------------------------------
@@ -353,7 +600,12 @@ class SampleBasedKrylovDiagonalization:
 
     def compute_ground_state_energy(self, basis: np.ndarray) -> float:
         """Project H on ``basis`` and diagonalize (host f64): Hermitize,
-        regularize, condition check -> SVD fallback, dense/sparse routing."""
+        regularize, condition check -> SVD fallback, dense/sparse routing.
+
+        The JAX package seeds ``eigsh`` for sampled spin bases above 200k
+        states with a device ELL Lanczos vector; that seed comes with the
+        device eigensolvers (ROADMAP Queue 1 item 5).  The unseeded solve
+        reaches the same energy."""
         basis = np.atleast_2d(np.asarray(basis, np.uint32))
         nb = len(basis)
         reg = self.config.regularization
@@ -379,6 +631,25 @@ class SampleBasedKrylovDiagonalization:
             H = u @ np.diag(s) @ vt
             H = 0.5 * (H + H.T)
         return float(np.linalg.eigvalsh(H)[0] - reg)
+
+    def run(self, final_only: bool = False) -> Dict:
+        """Energies against Krylov dimension on the cumulative bases.
+        ``final_only`` skips the intermediate eigensolves (NaN in their
+        place)."""
+        samples = self.generate_krylov_samples()
+        bases = self.build_cumulative_basis(samples)
+        if final_only:
+            energies = [np.nan] * (len(bases) - 1) + [
+                self.compute_ground_state_energy(bases[-1])]
+        else:
+            energies = [self.compute_ground_state_energy(b) for b in bases]
+        return {
+            "energies": energies,
+            "basis_sizes": [len(b) for b in bases],
+            "bases": bases,
+            "samples": samples,
+            "final_energy": energies[-1] if energies else np.nan,
+        }
 
 
 class FlowGuidedSKQD(SampleBasedKrylovDiagonalization):

@@ -1,5 +1,5 @@
-"""Port tests that need a CUDA card: the hand-written ELL SpMV kernel and
-the slice on the device.  They skip without a card.
+"""Port tests that need a CUDA card: the hand-written ELL SpMV and x_sweep
+kernels, and both slices on the device.  They skip without a card.
 
 This file imports no JAX (the card's machine has none).  Run it there with
 
@@ -14,6 +14,7 @@ import torch
 
 from flow_guided_krylov_torch.hamiltonians import create_lih_hamiltonian
 from flow_guided_krylov_torch.ops import ell_spmv as ell
+from flow_guided_krylov_torch.ops import x_sweep as xs
 from flow_guided_krylov_torch.ops.bits import to_device, to_host
 from flow_guided_krylov_torch.utils.connection_table import \
     build_connection_table
@@ -92,3 +93,102 @@ def test_slice_on_card(lih_cuda):
     psi0 = np.zeros(skqd.dim, complex)
     psi0[skqd._index_of(h.get_hf_state())[0]] = 1.0
     assert np.abs(skqd.evolve(psi0) - skqd._evolve_scipy(psi0)).max() < 1e-5
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    return torch.device("cuda")
+
+
+def _mixed_words(n, tile_bits):
+    """Pure X on every tile bit, XX and YY on neighbouring tile bits, and a
+    single Y whose Z mask reaches the top qubit, outside the tile."""
+    words = [(0.01 * (q + 1), 1 << q, 0, 0) for q in range(tile_bits)]
+    for q in range(0, tile_bits - 1, 3):
+        m = (1 << q) | (1 << (q + 1))
+        words += [(0.02 * (q + 1), m, 0, 0), (-0.03 * (q + 1), m, m, 2)]
+    words.append((0.05, 1 << 2, (1 << 2) | (1 << (n - 1)), 1))
+    return words
+
+
+@pytest.mark.parametrize("tile_bits", [13, 14])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward",
+                                                        "reversed"])
+@pytest.mark.parametrize("n", [16, 20])
+def test_x_sweep_kernel_matches_plain(card, n, reverse, tile_bits):
+    """Same rounding, same order: the kernel equals the plain version."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(1 << n, generator=gen, device=card)
+    im = torch.randn(1 << n, generator=gen, device=card)
+    words = _mixed_words(n, tile_bits)
+    sweep = xs.make_x_sweep(n, words, tile_bits=tile_bits, reverse=reverse)
+    before = xs.x_sweep_cuda.launches
+    got = sweep(re, im)
+    torch.cuda.synchronize()
+    assert xs.x_sweep_cuda.launches == before + 1
+    want = xs.x_sweep_reference(re, im, words[::-1] if reverse else words, n)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) == 0.0
+
+
+def test_x_sweep_wrapper_rejects_bad_input(card):
+    n = 14
+    re = torch.zeros(1 << n, device=card)
+    table = torch.as_tensor(xs.word_table(_mixed_words(n, 13)), device=card)
+    launches = xs.x_sweep_cuda.launches
+    with pytest.raises(ValueError, match="re:"):
+        xs.x_sweep_cuda(re.double(), re.double(), table, n, 13)
+    with pytest.raises(ValueError, match="im"):
+        xs.x_sweep_cuda(re, re[:-1], table, n, 13)
+    with pytest.raises(ValueError, match="contiguous"):
+        xs.x_sweep_cuda(re, torch.zeros(2 << n, device=card)[::2], table,
+                        n, 13)
+    with pytest.raises(ValueError, match="table"):
+        xs.x_sweep_cuda(re, re, table.cpu(), n, 13)
+    with pytest.raises(ValueError, match="aligned"):
+        xs.x_sweep_cuda(re, torch.zeros((1 << n) + 1, device=card)[1:],
+                        table, n, 13)
+    assert xs.x_sweep_cuda.launches == launches
+
+
+def test_trotter_evolve_on_card_matches_cpu(card):
+    """TFIM-18 with the default tile: the low words go through the kernel
+    on the card and through the plain version on the CPU, in the same
+    order.  Both take the half-phase's cos and sin in float64 on the host
+    and round every product and sum alike, so the states are equal."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    n, start = 18, 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = krylov.SampleBasedKrylovDiagonalization(
+            TransverseFieldIsing(n, h=0.5, device=dev),
+            krylov.SKQDConfig(evolution="auto"),
+            initial_state=np.array([start], np.uint32))
+        assert s.use_trotter
+        re = torch.zeros(1 << n, device=dev)
+        re[start] = 1.0
+        before = xs.x_sweep_cuda.launches
+        out[dev] = s._evolve_trotter(re, torch.zeros_like(re))
+        launched = xs.x_sweep_cuda.launches - before
+        assert launched == (2 * s.config.num_trotter_steps
+                            if dev == "cuda" else 0)
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert float((g.cpu() - c).abs().max()) == 0.0
+
+
+def test_sampler_draws_reproducibly_on_card(card):
+    """The inverse-CDF sampler draws the same indices from the same
+    uniforms, call after call, on 2^20 probabilities, and never a
+    zero-probability index."""
+    from flow_guided_krylov_torch.krylov import skqd
+    gen = torch.Generator(device=card).manual_seed(3)
+    prob = torch.rand(1 << 20, generator=gen, device=card) ** 4
+    prob[::7] = 0.0
+    u = torch.rand(100_000, generator=gen, device=card)
+    first = skqd._sample_idx_cdf(prob, u)
+    for _ in range(5):
+        assert torch.equal(skqd._sample_idx_cdf(prob, u), first)
+    assert float(prob[first].min()) > 0
