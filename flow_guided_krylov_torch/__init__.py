@@ -1,9 +1,10 @@
 """flow_guided_krylov_torch — the PyTorch/CUDA port of flow_guided_krylov_tpu.
 
 The JAX package beside it is the reference.  This package imports
-``torch``, NumPy and SciPy, and from the JAX package only
-``flow_guided_krylov_tpu.chem`` (host NumPy integrals plus the C++ ERI
-engine), so it runs on a machine without JAX.
+``torch``, NumPy and SciPy and nothing of the JAX package: it keeps its
+own copy of the host chemistry (``chem/``, NumPy integrals plus the
+shared C++ ERI engine in ``native/``), so it runs on a machine without
+JAX.
 
 Every device computation runs on the device of the Hamiltonian it is given
 (``MolecularHamiltonian(integrals, device=...)``); nothing picks a device

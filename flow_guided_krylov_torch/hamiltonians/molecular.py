@@ -2,8 +2,8 @@
 
 Counterpart of ``flow_guided_krylov_tpu/hamiltonians/molecular.py`` for
 n_orb <= 32.  Alpha orbitals sit on Jordan-Wigner qubits 0..n-1, beta on
-n..2n-1.  Host integrals come from ``flow_guided_krylov_tpu.chem`` (NumPy
-and the C++ ERI engine; no JAX).  Device compute runs on ``device``, which
+n..2n-1.  Host integrals come from the port's own ``chem`` (NumPy and the
+shared C++ ERI engine).  Device compute runs on ``device``, which
 the caller names; every downstream consumer uses this device.
 """
 
@@ -16,9 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from flow_guided_krylov_tpu.chem import (MolecularIntegrals,
-                                         compute_molecular_integrals)
-
+from ..chem import MolecularIntegrals, compute_molecular_integrals
 from ..ops.slater import (SlaterTables, build_tables, connections_batch_np,
                           diagonal_batch, diagonal_batch_np,
                           make_connection_fn)

@@ -9,7 +9,8 @@ Counterpart of ``flow_guided_krylov_tpu/krylov/skqd.py`` for two paths:
 * spin lattices of up to 31 sites.  Past ``trotter_threshold`` sites (or
   with ``evolution="trotter"``) a full 2^n statevector is evolved on the
   device by a second-order Trotter splitting over the Hamiltonian's Pauli
-  words, the low-bit words through the x_sweep kernel.  Smaller lattices,
+  words, all of them through the x_sweep kernel (a contiguous tile for
+  the low-bit words, gathered tiles for the rest).  Smaller lattices,
   and magnetization-conserving ones whose sector is small, evolve in an
   enumerated subspace with the dense or scipy propagator.
 
@@ -39,8 +40,7 @@ from ..hamiltonians.base import Hamiltonian
 from ..hamiltonians.spin import extract_coeffs_and_paulis
 from ..ops.bits import _parity32
 from ..ops.ell_spmv import ell_spmv
-from ..ops.x_sweep import (TILE_BITS, _pauli_masks, _pauli_rotation_pair,
-                           make_x_sweep)
+from ..ops.x_sweep import TILE_BITS, _pauli_masks, make_gathered_sweeps
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
@@ -389,16 +389,18 @@ class SampleBasedKrylovDiagonalization:
 
     def _trotter_ops(self):
         """One second-order Trotter substep over the Hamiltonian's Pauli
-        words, built once: diag . sweep(low) . high . reversed(high) .
-        sweep(low, reversed) . diag.
+        words, built once: diag . sweep(seq) . sweep(reversed(seq)) . diag.
 
         * diag: every diagonal word (x_mask == 0) folds into one
           half-phase exp(-i dt/2 * D), a (cos, -sin) float32 pair.
-        * low: the off-diagonal words whose x_mask lies inside the x_sweep
-          tile, 0 < x_mask < 2^min(TILE_BITS, n), at half angle: one
-          ``make_x_sweep`` pass forward and one reversed.
-        * high: the other off-diagonal words, one
-          ``_pauli_rotation_pair`` each, forward then reversed.
+        * seq: the off-diagonal words at half angle, first those whose
+          x_mask lies inside the contiguous tile, 0 < x_mask <
+          2^min(TILE_BITS, n) (low), then the others (high).  seq then
+          reversed(seq) is one list that ``plan_sweeps`` cuts, without
+          reordering, into gathered-tile sweeps: three launches at TFIM-24
+          (the 14 low words on bits 0..13, the 20 high ones on bits
+          {0..3, 14..23}, the low words reversed).  On the CPU the list is
+          the same chain of ``_pauli_rotation_pair`` calls.
 
         A forward-then-reversed sweep is second order for any order of
         the words.  When every word is low, this is the JAX package's
@@ -414,22 +416,14 @@ class SampleBasedKrylovDiagonalization:
         offd = [(c * dt_sub / 2, xm, zm, ny)
                 for c, (xm, zm, ny) in zip(coeffs, masks) if xm != 0]
         tile = 1 << min(TILE_BITS, n)
-        low = [w for w in offd if w[1] < tile]
-        high = [w for w in offd if w[1] >= tile]
-        sweep_f = make_x_sweep(n, low)
-        sweep_r = make_x_sweep(n, low, reverse=True)
+        seq = ([w for w in offd if w[1] < tile]
+               + [w for w in offd if w[1] >= tile])
+        sweeps = make_gathered_sweeps(n, seq + seq[::-1])
         hp_re, hp_im = _half_phase(diag, n, dt_sub, self.device)
 
         def substep(re, im):
             re, im = _diag_mul(re, im, hp_re, hp_im)
-            if low:
-                re, im = sweep_f(re, im)
-            for theta, xm, zm, ny in high:
-                re, im = _pauli_rotation_pair(re, im, theta, xm, zm, ny, n)
-            for theta, xm, zm, ny in reversed(high):
-                re, im = _pauli_rotation_pair(re, im, theta, xm, zm, ny, n)
-            if low:
-                re, im = sweep_r(re, im)
+            re, im = sweeps(re, im)
             return _diag_mul(re, im, hp_re, hp_im)
 
         self._trotter = substep

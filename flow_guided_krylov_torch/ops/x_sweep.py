@@ -3,20 +3,26 @@
 Counterpart of ``flow_guided_krylov_tpu/ops/pallas_trotter.py``.  A sweep
 applies exp(-i theta_w P_w) for a list of words (theta, x_mask, z_mask,
 n_y), in order or reversed, to a 2^n statevector held as a (re, im)
-float32 pair.  Every word's x_mask lies inside one tile of 2^T
-consecutive amplitudes, so the whole list costs one pass over the state.
+float32 pair.  Every word's x_mask lies inside one tile: the 2^T
+amplitudes that share every bit outside T chosen bit positions.  So the
+whole list costs one pass over the state.  The JAX kernel's tile is the
+contiguous one, bits 0..T-1; the port's kernel also takes gathered tiles
+at any T positions (bits {0..3, 14..23} for TFIM-24's high words).
 
 * :func:`_pauli_rotation_pair` — one word's rotation in plain torch, with
-  the kernel's rounding: the primitive of the plain version and of the
-  Trotter propagator's words outside the tile.
+  the kernel's rounding: the primitive of the plain version.  It counts
+  its calls on CUDA tensors in ``_pauli_rotation_pair.cuda_calls``.
 * :func:`x_sweep_reference` — the plain torch version: the words one after
   another through :func:`_pauli_rotation_pair`.
 * :func:`x_sweep_cuda` — the hand-written Hopper kernel
   (``csrc/x_sweep.cu``), built with ``nvcc`` at first use.
 * :func:`make_x_sweep` — the JAX name and contract: a callable
-  ``(re, im) -> (re, im)`` that routes by the tensors' device, the kernel
-  on ``cuda`` and the plain version on ``cpu``.  A kernel that fails to
-  build or launch raises.
+  ``(re, im) -> (re, im)`` over the contiguous tile that routes by the
+  tensors' device, the kernel on ``cuda`` and the plain version on
+  ``cpu``.  A kernel that fails to build or launch raises.
+* :func:`plan_sweeps` / :func:`make_gathered_sweeps` — cut an ordered word
+  list into consecutive groups, each inside one gathered tile, and sweep
+  them one launch a group.  Word order is never changed.
 
 The JAX package routes its sweep only on a TPU and only when an
 environment switch asks for it, because there each XOR became a
@@ -30,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,18 +44,27 @@ import torch
 from ..utils.build import build_library, find_nvcc
 from .bits import _parity32
 
-__all__ = ["TILE_BITS", "MAX_TILE_BITS", "make_x_sweep", "x_sweep_reference",
-           "x_sweep_cuda", "word_table", "KERNEL_SOURCE"]
+__all__ = ["TILE_BITS", "MAX_TILE_BITS", "REG_BITS", "MAX_WORDS",
+           "make_x_sweep", "make_gathered_sweeps", "plan_sweeps",
+           "sweep_table", "x_sweep_reference", "x_sweep_cuda", "word_table",
+           "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "x_sweep.cu")
 
 # log2 of the tile's amplitude count.  The kernel holds a tile in shared
 # memory at 8 bytes an amplitude, so 14 (128 KB) is the largest it takes.
-# 14 beat 13 on a TFIM-24 evolve on an H100: a sweep over 13 bits is
-# faster, but leaves one more word to the plain path (csrc/x_sweep.cu).
 TILE_BITS = 14
 MAX_TILE_BITS = 14
+# a kernel thread holds sub-cubes of 2^REG_BITS amplitudes in registers,
+# spanned by REG_BITS vectors of tile bits: single bits, or a word's whole
+# x when it flips more bits than this (a phase of its own)
+REG_BITS = 4
+# a gathered tile always holds the lowest LOW_BITS global bits, so that
+# the kernel moves whole 32-byte sectors
+LOW_BITS = 4
+# word records one launch takes (the kernel stages them in shared memory)
+MAX_WORDS = 1024
 
 Word = Tuple[float, int, int, int]           # (theta, x_mask, z_mask, n_y)
 
@@ -91,6 +106,8 @@ def _pauli_rotation_pair(re: torch.Tensor, im: torch.Tensor, theta: float,
     on a (re, im) float32 pair, with (P psi)[k] = s * i^n_y * psi[k ^ x],
     s = (-1)^parity((k ^ x) & z).  Products and sums are rounded one by
     one, in the order the kernel uses."""
+    if re.is_cuda:
+        _pauli_rotation_pair.cuda_calls += 1
     ct, st = _cos_sin_f32(theta)
     xr = _xor_permute(re, x_mask, n_qubits)
     xi = _xor_permute(im, x_mask, n_qubits)
@@ -105,6 +122,9 @@ def _pauli_rotation_pair(re: torch.Tensor, im: torch.Tensor, theta: float,
     p_re = s * p_re
     p_im = s * p_im
     return ct * re + st * p_im, ct * im - st * p_re
+
+
+_pauli_rotation_pair.cuda_calls = 0
 
 
 def x_sweep_reference(re: torch.Tensor, im: torch.Tensor,
@@ -128,6 +148,91 @@ def word_table(words: Sequence[Word]) -> np.ndarray:
     return table
 
 
+def _bits(mask: int) -> List[int]:
+    return [q for q in range(mask.bit_length()) if (mask >> q) & 1]
+
+
+def _tile_mask(tile_bits: Union[int, Sequence[int]], n_qubits: int) -> int:
+    """The tile's global bit mask: ``tile_bits`` is a count T (bits
+    0..T-1) or the positions themselves.  Raises unless the tile has
+    between 1 and MAX_TILE_BITS distinct bits below n_qubits <= 31."""
+    if isinstance(tile_bits, (int, np.integer)):
+        positions = list(range(int(tile_bits)))
+    else:
+        positions = [int(q) for q in tile_bits]
+    mask = sum(1 << q for q in set(positions) if q >= 0)
+    if (len(set(positions)) != len(positions) or min(positions, default=-1) < 0
+            or not 1 <= len(positions) <= MAX_TILE_BITS
+            or mask >> n_qubits or n_qubits > 31):
+        raise ValueError(f"tile_bits {tile_bits} must name 1 to "
+                         f"{MAX_TILE_BITS} distinct bits below n_qubits "
+                         f"{n_qubits} <= 31")
+    return mask
+
+
+def _popcount(v: int) -> int:
+    return bin(v).count("1")
+
+
+def sweep_table(words: Sequence[Word], n_qubits: int,
+                tile_bits: Union[int, Sequence[int]]) -> np.ndarray:
+    """(W, 8) int32 word records of the kernel for a tile
+    (``csrc/x_sweep.cu``): :func:`word_table`'s five columns, then each
+    word in the register coordinates of its phase and the phase's
+    register vectors.
+
+    Phases cut the list, in order, into runs of consecutive words whose
+    flip bits (in tile coordinates) together span at most REG_BITS bits;
+    each phase's register vectors are those bits, padded with the lowest
+    other tile bits (and with zero vectors in a tile of fewer than
+    REG_BITS bits).  A word that flips more than REG_BITS bits makes a
+    phase of its own, whose vectors are its whole x (pivot: its lowest
+    bit) and REG_BITS - 1 single bits.  Raises when a word's x is empty or
+    leaves the tile."""
+    tmask = _tile_mask(tile_bits, n_qubits)
+    pos = _bits(tmask)
+    tile_of = {q: i for i, q in enumerate(pos)}
+
+    def to_tile(m: int) -> int:
+        return sum(1 << tile_of[q] for q in _bits(m) if q in tile_of)
+
+    xts = []
+    for _, xm, _, _ in words:
+        if xm <= 0 or xm & ~tmask:
+            raise ValueError(f"x_mask {xm:#x} is empty or leaves the tile "
+                             f"{tmask:#x}")
+        xts.append(to_tile(xm))
+    phases = []                      # [first word, pivots, wide x or 0]
+    for w, xt in enumerate(xts):
+        if _popcount(xt) > REG_BITS:
+            phases.append([w, xt & -xt, xt])
+        elif (phases and not phases[-1][2]
+              and _popcount(phases[-1][1] | xt) <= REG_BITS):
+            phases[-1][1] |= xt
+        else:
+            phases.append([w, xt, 0])
+
+    table = np.zeros((len(words), 8), np.int32)
+    table[:, :5] = word_table(words)
+    ends = [p[0] for p in phases[1:]] + [len(words)]
+    for (a, reg, wide), b in zip(phases, ends):
+        for q in range(len(pos)):
+            if _popcount(reg) < REG_BITS:
+                reg |= 1 << q
+        vecs = [wide if wide and r == wide & -wide else r
+                for r in (1 << q for q in _bits(reg))]
+        vecs += [0] * (REG_BITS - len(vecs))
+        for w in range(a, b):
+            zt = to_tile(words[w][2])
+            xr = (1 << vecs.index(wide) if wide else
+                  sum(1 << i for i, v in enumerate(vecs) if v & xts[w]))
+            zr = sum(1 << i for i, v in enumerate(vecs)
+                     if _popcount(v & zt) & 1)
+            table[w, 5:] = (xr | zr << 4 | (w == a) << 8 | (zt & ~reg) << 16,
+                            vecs[0] | vecs[1] << 16, vecs[2] | vecs[3] << 16)
+    return table
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build_library(
@@ -137,30 +242,29 @@ def _library() -> ctypes.CDLL:
          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"])
     p = ctypes.c_void_p
     lib.fgk_x_sweep.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, p]
+                                ctypes.c_uint, p]
     lib.fgk_x_sweep.restype = ctypes.c_int
     return lib
 
 
 def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
-                 n_qubits: int, tile_bits: int
+                 n_qubits: int, tile_bits: Union[int, Sequence[int]]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream of ``re``'s device.
 
     Takes contiguous CUDA tensors: ``re`` and ``im`` float32
-    (2^n_qubits,), 16-byte aligned, and ``table`` int32 (W, 5) from
-    :func:`word_table` with every x_mask in (0, 2^tile_bits).  Returns new
-    (re, im) tensors.
+    (2^n_qubits,), 16-byte aligned, and ``table`` int32 (W, 8) from
+    :func:`sweep_table` for the same tile, W <= MAX_WORDS.  ``tile_bits``
+    is a count T (the contiguous tile, bits 0..T-1) or the tile's bit
+    positions.
+    Returns new (re, im) tensors.
     """
+    tmask = _tile_mask(tile_bits, n_qubits)
     dim = 1 << n_qubits
-    if not 1 <= tile_bits <= min(n_qubits, MAX_TILE_BITS) or n_qubits > 31:
-        raise ValueError(f"tile_bits {tile_bits} must lie in "
-                         f"[1, min({n_qubits}, {MAX_TILE_BITS})] and "
-                         f"n_qubits {n_qubits} <= 31")
     for name, t, dtype, shape in (("re", re, torch.float32, (dim,)),
                                   ("im", im, torch.float32, (dim,)),
                                   ("table", table, torch.int32,
-                                   (table.shape[0], 5))):
+                                   (table.shape[0], 8))):
         if t.device != re.device or t.device.type != "cuda":
             raise ValueError(f"{name} must lie on re's CUDA device, "
                              f"got {t.device}")
@@ -172,6 +276,9 @@ def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
     if re.data_ptr() % 16 or im.data_ptr() % 16:
         raise ValueError("re and im must start 16-byte aligned (the kernel "
                          "moves them with 16-byte loads)")
+    if table.shape[0] > MAX_WORDS:
+        raise ValueError(f"table of {table.shape[0]} words: one launch "
+                         f"takes at most {MAX_WORDS}")
     lib = _library()
     re_out = torch.empty_like(re)
     im_out = torch.empty_like(im)
@@ -179,7 +286,7 @@ def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
         stream = torch.cuda.current_stream(re.device).cuda_stream
         rc = lib.fgk_x_sweep(re.data_ptr(), im.data_ptr(), re_out.data_ptr(),
                              im_out.data_ptr(), table.data_ptr(),
-                             table.shape[0], n_qubits, tile_bits, stream)
+                             table.shape[0], n_qubits, tmask, stream)
     if rc != 0:
         raise RuntimeError(f"x_sweep kernel launch failed: cudaError {rc}")
     x_sweep_cuda.launches += 1
@@ -189,13 +296,37 @@ def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
 x_sweep_cuda.launches = 0
 
 
+def _tile_sweep(n_qubits: int, seq: List[Word],
+                tile_bits: Union[int, Sequence[int]]) -> Callable:
+    """``(re, im) -> (re, im)`` applying ``seq`` in order inside one tile:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor.  The
+    kernel's records are built here, so a tile or word the kernel cannot
+    take raises on every device (:func:`sweep_table`)."""
+    table = sweep_table(seq, n_qubits, tile_bits)
+    on_device = {}
+
+    def sweep(re: torch.Tensor, im: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if re.device.type == "cuda":
+            t = on_device.get(re.device)
+            if t is None:
+                t = on_device[re.device] = torch.as_tensor(
+                    table, device=re.device)
+            return x_sweep_cuda(re, im, t, n_qubits, tile_bits)
+        if re.device.type == "cpu":
+            return x_sweep_reference(re, im, seq, n_qubits)
+        raise ValueError(f"no x_sweep for device {re.device}")
+
+    return sweep
+
+
 def make_x_sweep(n_qubits: int, words: Sequence[Word],
                  tile_bits: int = TILE_BITS, reverse: bool = False
                  ) -> Optional[Callable]:
     """A callable ``(re, im) -> (re, im)`` applying exp(-i theta P) for
     every word (theta, x_mask, z_mask, n_y) in order (reversed when
-    ``reverse``), every x_mask inside a tile of 2^min(tile_bits, n_qubits)
-    amplitudes.
+    ``reverse``), every x_mask inside the contiguous tile of
+    2^min(tile_bits, n_qubits) amplitudes.
 
     Returns None when a word's x_mask is <= 0 or leaves the tile.  The
     callable launches the kernel for tensors on a CUDA device and runs
@@ -205,19 +336,61 @@ def make_x_sweep(n_qubits: int, words: Sequence[Word],
     if any(w[1] <= 0 or w[1] >= 1 << tile_bits for w in words):
         return None
     seq = list(reversed(words)) if reverse else list(words)
-    table = word_table(seq)
-    on_device = {}
+    return _tile_sweep(n_qubits, seq, tile_bits)
 
-    def sweep(re: torch.Tensor, im: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if re.device.type == "cuda":
-            t = on_device.get(re.device)
-            if t is None:
-                t = on_device[re.device] = torch.as_tensor(table,
-                                                           device=re.device)
-            return x_sweep_cuda(re, im, t, n_qubits, tile_bits)
-        if re.device.type == "cpu":
-            return x_sweep_reference(re, im, seq, n_qubits)
-        raise ValueError(f"no x_sweep for device {re.device}")
 
-    return sweep
+def plan_sweeps(words: Sequence[Word], n_qubits: int,
+                tile_bits: int = TILE_BITS
+                ) -> List[Tuple[Tuple[int, ...], List[Word]]]:
+    """Cut an ordered word list into consecutive groups, in order, each
+    inside one gathered tile: (tile bit positions, words).
+
+    A group grows, up to MAX_WORDS words, while the union of its words'
+    flip bits and the lowest LOW_BITS bits spans at most
+    T = min(tile_bits, n_qubits) bits; the tile is that union filled up
+    to T bits with the lowest other bits (a word that flips more than
+    T - LOW_BITS high bits starts a tile without them).  Word order is
+    never changed, so applying the groups one after another is the
+    word-by-word product.  Raises, on every device, for a word no tile
+    holds: no flip bit, a bit at or above n_qubits, or more than T flip
+    bits."""
+    t = min(tile_bits, n_qubits)
+    low = (1 << min(LOW_BITS, t)) - 1
+    groups: List[list] = []          # [tile mask, words]
+    for w in words:
+        xm = w[1]
+        if xm <= 0 or xm >> n_qubits or _popcount(xm) > t:
+            raise ValueError(f"x_mask {xm:#x} fits no {t}-bit tile of "
+                             f"{n_qubits} qubits")
+        if (groups and len(groups[-1][1]) < MAX_WORDS
+                and _popcount(groups[-1][0] | xm) <= t):
+            groups[-1][0] |= xm
+            groups[-1][1].append(w)
+        else:
+            groups.append([low | xm if _popcount(low | xm) <= t else xm,
+                           [w]])
+    plan = []
+    for mask, ws in groups:
+        for q in range(n_qubits):
+            if _popcount(mask) < t:
+                mask |= 1 << q
+        plan.append((tuple(_bits(mask)), ws))
+    return plan
+
+
+def make_gathered_sweeps(n_qubits: int, words: Sequence[Word],
+                         tile_bits: int = TILE_BITS) -> Callable:
+    """``(re, im) -> (re, im)`` applying ``words`` in order through the
+    groups of :func:`plan_sweeps`: one kernel launch a group on a CUDA
+    tensor, the plain version (the same chain of
+    :func:`_pauli_rotation_pair`) on a CPU tensor."""
+    steps = [_tile_sweep(n_qubits, ws, tile)
+             for tile, ws in plan_sweeps(words, n_qubits, tile_bits)]
+
+    def sweeps(re: torch.Tensor, im: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for step in steps:
+            re, im = step(re, im)
+        return re, im
+
+    return sweeps

@@ -73,6 +73,40 @@ def test_ell_reference_matches_jax(lih):
         np.testing.assert_array_equal(got2[b].numpy(), got1.numpy())
 
 
+
+def test_segment_count_follows_the_table():
+    """S from (N, C): enough lanes in flight at N2, few at large N, never
+    more segments than connections."""
+    assert ell.ell_segments(14_400, 609) == 32
+    assert ell.ell_segments(213_444, 1_260) == 2
+    assert ell.ell_segments(1 << 20, 600) == 1
+    assert ell.ell_segments(225, 3) == 4
+    assert ell.psi_fits_on_chip(14_400, 2)
+    assert not ell.psi_fits_on_chip(213_444, 1)
+
+
+@pytest.mark.parametrize("segs", [1, 2, 8, 32])
+def test_segmented_reference_against_f64_sum(lih, monkeypatch, segs):
+    """Each segmentation is a float32 sum of the same terms: held to an
+    in-order float64 sum at 1e-5 (LiH's rows have C terms of |e psi| < 1,
+    so float32 rounding stays near C * 6e-8 of the row's scale); and the
+    segmentation changes only the rounding, never more than that."""
+    diag, el_t, tgt_t = ell_from_jax(*lih[3], device="cpu")
+    monkeypatch.setattr(ell, "ell_segments", lambda n, c: segs)
+    rng = np.random.default_rng(segs)
+    psi = rng.normal(size=(2, diag.shape[0])).astype(np.float32)
+    got = ell.ell_spmv_reference(diag, el_t, tgt_t, torch.as_tensor(psi))
+    d, e, t = (x.numpy().astype(np.float64) for x in (diag, el_t, tgt_t))
+    want = d * psi + (e[None] * psi[:, t.astype(np.int64)]).sum(axis=1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    # one segment is the plain in-order sum, c = 0..C-1
+    acc = diag * torch.as_tensor(psi)
+    seg = torch.zeros_like(acc)
+    for c in range(el_t.shape[0]):
+        seg = seg + el_t[c] * torch.as_tensor(psi).index_select(-1, tgt_t[c])
+    if segs == 1:
+        assert torch.equal(got, acc + seg)
+
 def test_cuda_wrapper_refuses_cpu_tensors(lih):
     diag, el_t, tgt_t = ell_from_jax(*lih[3], device="cpu")
     with pytest.raises(ValueError, match="CUDA"):

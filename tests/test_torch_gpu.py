@@ -51,6 +51,20 @@ def test_ell_kernel_matches_plain(lih_ell):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+@pytest.mark.parametrize("on_chip", [True, False], ids=["psi-in-smem",
+                                                       "psi-in-l2"])
+def test_ell_kernel_equals_segmented_plain(lih_ell, on_chip):
+    """Both routes sum in the plain version's segmented order: 0.0."""
+    diag, el_t, tgt_t = lih_ell
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    psi = torch.randn(2, diag.shape[0], generator=gen, device="cuda")
+    for x in (psi, psi[1].contiguous()):
+        want = ell.ell_spmv_reference(diag, el_t, tgt_t, x)
+        got = ell.ell_spmv_cuda(diag, el_t, tgt_t, x, psi_on_chip=on_chip)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) == 0.0
+
+
 def test_ell_wrapper_rejects_bad_input(lih_ell):
     diag, el_t, tgt_t = lih_ell
     psi = torch.zeros(3, diag.shape[0], device="cuda")
@@ -136,7 +150,8 @@ def test_x_sweep_kernel_matches_plain(card, n, reverse, tile_bits):
 def test_x_sweep_wrapper_rejects_bad_input(card):
     n = 14
     re = torch.zeros(1 << n, device=card)
-    table = torch.as_tensor(xs.word_table(_mixed_words(n, 13)), device=card)
+    table = torch.as_tensor(xs.sweep_table(_mixed_words(n, 13), n, 13),
+                            device=card)
     launches = xs.x_sweep_cuda.launches
     with pytest.raises(ValueError, match="re:"):
         xs.x_sweep_cuda(re.double(), re.double(), table, n, 13)
@@ -147,6 +162,8 @@ def test_x_sweep_wrapper_rejects_bad_input(card):
                         n, 13)
     with pytest.raises(ValueError, match="table"):
         xs.x_sweep_cuda(re, re, table.cpu(), n, 13)
+    with pytest.raises(ValueError, match="table"):
+        xs.x_sweep_cuda(re, re, table[:, :5].contiguous(), n, 13)
     with pytest.raises(ValueError, match="aligned"):
         xs.x_sweep_cuda(re, torch.zeros((1 << n) + 1, device=card)[1:],
                         table, n, 13)
@@ -171,10 +188,14 @@ def test_trotter_evolve_on_card_matches_cpu(card):
         re = torch.zeros(1 << n, device=dev)
         re[start] = 1.0
         before = xs.x_sweep_cuda.launches
+        plain = xs._pauli_rotation_pair.cuda_calls
         out[dev] = s._evolve_trotter(re, torch.zeros_like(re))
         launched = xs.x_sweep_cuda.launches - before
-        assert launched == (2 * s.config.num_trotter_steps
+        # a substep: low sweep, one gathered sweep of the high words
+        # (bits 14..17), low sweep reversed
+        assert launched == (3 * s.config.num_trotter_steps
                             if dev == "cuda" else 0)
+        assert xs._pauli_rotation_pair.cuda_calls == plain
     for c, g in zip(out["cpu"], out["cuda"]):
         assert float((g.cpu() - c).abs().max()) == 0.0
 
@@ -192,3 +213,107 @@ def test_sampler_draws_reproducibly_on_card(card):
     for _ in range(5):
         assert torch.equal(skqd._sample_idx_cdf(prob, u), first)
     assert float(prob[first].min()) > 0
+
+
+def _straddling_words(n):
+    """X on every bit above 13, XX and YY straddling bit 13|14 and later
+    neighbours, and a Y whose Z mask reaches bit 0 and the top qubit."""
+    words = [(0.01 * (q + 1), 1 << q, 0, 0) for q in range(13, n)]
+    for q in range(13, n - 1, 2):
+        m = (1 << q) | (1 << (q + 1))
+        words += [(0.02 * q, m, 0, 0), (-0.03 * q, m, m, 2)]
+    words.append((0.05, 1 << 15, (1 << 15) | 1 | (1 << (n - 1)), 1))
+    return words
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward",
+                                                        "reversed"])
+@pytest.mark.parametrize("n", [16, 20])
+def test_gathered_sweeps_match_plain(card, n, reverse):
+    """Gathered tiles over the high bits: one launch a planned group, the
+    plain chain bit for bit, and no plain rotation on the card."""
+    gen = torch.Generator(device=card).manual_seed(n + 1)
+    re = torch.randn(1 << n, generator=gen, device=card)
+    im = torch.randn(1 << n, generator=gen, device=card)
+    words = _straddling_words(n)
+    seq = words[::-1] if reverse else words
+    for tile_bits in (8, 14):
+        plan = xs.plan_sweeps(seq, n, tile_bits)
+        before = xs.x_sweep_cuda.launches
+        plain = xs._pauli_rotation_pair.cuda_calls
+        got = xs.make_gathered_sweeps(n, seq, tile_bits)(re, im)
+        torch.cuda.synchronize()
+        assert xs.x_sweep_cuda.launches == before + len(plan)
+        assert xs._pauli_rotation_pair.cuda_calls == plain
+        want = xs.x_sweep_reference(re, im, seq, n)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) == 0.0
+
+
+def test_heisenberg_evolve_on_card_matches_cpu(card):
+    """Heisenberg-hx-20: XX/YY words cross bit 13|14, so the high words go
+    through a gathered sweep.  The card's evolve equals the CPU's bit for
+    bit and launches no plain rotation."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import (HeisenbergHamiltonian,
+                                                       pack_spin_state)
+    n = 20
+    neel = sum(1 << i for i in range(0, n, 2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = krylov.SampleBasedKrylovDiagonalization(
+            HeisenbergHamiltonian(n, 1.0, 1.0, 1.0, h_x=np.full(n, 0.3),
+                                  device=dev),
+            krylov.SKQDConfig(evolution="trotter"),
+            initial_state=pack_spin_state(neel, n))
+        re = torch.zeros(1 << n, device=dev)
+        re[neel] = 1.0
+        plain = xs._pauli_rotation_pair.cuda_calls
+        out[dev] = s._evolve_trotter(re, torch.zeros_like(re))
+        assert xs._pauli_rotation_pair.cuda_calls == plain
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert float((g.cpu() - c).abs().max()) == 0.0
+
+
+def _wide_words(n):
+    """Words that flip more than 4 bits between narrow ones, as in
+    ``test_torch_sweep_plan.py``: a pure X on 5 bits, and X X Y Y X Y whose
+    Z reaches bit 0 and the top qubit."""
+    def mask(*qs):
+        return sum(1 << q for q in qs)
+    return [(0.11, 1 << 3, 0, 0), (0.07, mask(1, 4, 6, 9, 12), 0, 0),
+            (-0.05, mask(2, 5, 7, 8, 10, 11), mask(7, 8, 11, 0, n - 1), 3),
+            (0.02, mask(2, 5), mask(2, 5), 2)]
+
+
+def _small_words(n):
+    words = [(0.1 * (q + 1), 1 << q, 0, 0) for q in range(n)]
+    return words + [(0.3, (1 << n) - 1, (1 << n) - 1, n % 4),
+                    (-0.2, 1, (1 << n) - 1, 1)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
+def test_wide_words_and_small_states_match_plain(card, n):
+    """Words of 5 and 6 flip bits (a register phase of their own) and
+    states of fewer than 16 amplitudes (zero register vectors): the
+    kernel equals the plain chain bit for bit, forward and reversed, on
+    the contiguous tile and, at n = 16, on gathered 8-bit tiles."""
+    gen = torch.Generator(device=card).manual_seed(n + 5)
+    re = torch.randn(1 << n, generator=gen, device=card)
+    im = torch.randn(1 << n, generator=gen, device=card)
+    words = _wide_words(n) if n >= 13 else _small_words(n)
+    for reverse in (False, True):
+        seq = words[::-1] if reverse else words
+        want = xs.x_sweep_reference(re, im, seq, n)
+        sweeps = [xs.make_x_sweep(n, words, reverse=reverse)]
+        if n >= 13:
+            sweeps.append(xs.make_gathered_sweeps(n, seq, 8))
+        for sweep in sweeps:
+            before = xs.x_sweep_cuda.launches
+            plain = xs._pauli_rotation_pair.cuda_calls
+            got = sweep(re, im)
+            torch.cuda.synchronize()
+            assert xs.x_sweep_cuda.launches > before
+            assert xs._pauli_rotation_pair.cuda_calls == plain
+            for g, w in zip(got, want):
+                assert float((g - w).abs().max()) == 0.0
