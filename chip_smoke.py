@@ -44,7 +44,30 @@ statevector):
    checked against the free-fermion energy, against the basis and energy
    of the earlier runs, and for bit-equal samples from a second run with
    the same seed; then one Heisenberg-hx-20 Trotter evolve on the card
-   against the same evolve on the CPU, which takes the plain route.
+   against the same evolve on the CPU, which takes the plain route;
+8. sector SKQD on the Heisenberg chain at 24 sites (open, h_z = 0.1 on
+   site 0, Neel start): the whole 2,704,156-state S_z sector, its
+   (23, N) ELL table built on the card, Lanczos evolution through the ELL
+   kernel (K = 6, 100k shots), checked against the device oracle
+   ``exact_subspace_energy(refine_host=False)``, itself held to the
+   repo's f64 record of the sector's ground energy; the kernel at this
+   table (psi through L2, one segment) against its plain version, its
+   bound and cuSPARSE; a second same-seed instance must sample the same
+   basis;
+9. restricted SKQD on N2/cc-pVDZ (10e, 14o; 4,008,004 determinants,
+   2,835 connections each): one Selected-CI round from HF and its exact
+   Epstein-Nesbet dE2 (device block and host closure) against the
+   repo's deterministic record, then SKQD within the basis plus its top
+   PT2-ranked externals, at the record's cap of 30,514 states and, through
+   ``FlowGuidedKrylovPipeline.run_skqd``, at the card's own cap; one warm
+   dense evolve beside an ELL one at 30,513 rows and at four smaller
+   subspaces (the dense/ELL crossover);
+10. the device eigensolvers: ``lanczos_ground_state_ell`` and the dense
+   ``lanczos_ground_state`` on N2's full-space table against FCI, and
+   ``exact_fullspace_ground_state`` on the periodic TFIM chain (h = 1) at
+   20 sites (host-refined) and 24 sites (device only) against the
+   free-fermion energy, with the table-free ``flip-stepped`` route forced
+   once at 20 sites; the ELL kernel at the 24-site identity tables.
 
 Kernel times are medians over CUDA-event windows: ``ms`` of one launch a
 window (the host's launch gap included), ``device_ms`` of launches back to
@@ -56,6 +79,7 @@ cached under ``.fgk_cache/`` in the checkout (``FGK_INTEGRAL_CACHE``
 overrides it).  Needs no network; imports no JAX.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -88,6 +112,19 @@ PIPELINE_STAGES = ("stage1", "stage2", "stage3", "stage4", "summary")
 # route divides (H psi)_x by psi_x, which magnifies rounding where psi_x
 # is small)
 ROUTE_RTOL = 1e-4
+# Heisenberg-24 (open, h_z[0] = 0.1), S_z = 0 sector: the f64 ground energy
+# (results/val_heisenberg24_sci.txt:82) and the device Lanczos' tolerance
+HEIS24_SECTOR_E, SECTOR_DEVICE_TOL = -10.45802654124943, 1e-3
+HEIS24_NEEL_E = -5.7              # the start state's product energy bound
+# N2/cc-pVDZ (10e, 14o), one Selected-CI round from HF
+# (results/n2_ccpvdz_shallow1_skqd_r5.txt): determinants, E_var, dE2, and
+# the restricted-SKQD record at a cap of 30,514 states
+N2_DZ = {"basis": 370, "e_var": -109.10040332, "de2": -0.0154217836,
+         "tol": 1e-6, "cap": 30_514, "restricted_dim": 30_513,
+         "combined": 1033, "improvement_mha": 9.2254}
+EIGENSOLVER_TOL = 1e-3            # float32 device Lanczos against f64
+REFINED_TOL = 1e-8                # host-refined against the closed form
+SEEDED_ROWS = 250_000             # a basis above the seeded-eigsh threshold
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
 
@@ -202,7 +239,7 @@ def csr_of_ell(diag, el_t, tgt_t):
         return torch.sparse_csr_tensor(crow, cols, vals, (n, n))
 
 
-def library_products(csr, psi):
+def library_products(csr, psi, reps=50):
     """cuSPARSE's CSR product with psi: name -> (result (B, N), ms,
     device_ms).  psi.T is a strided (N, B) view; its contiguous copy is
     made before the timing; the matrix-vector form takes one row of psi a
@@ -216,15 +253,76 @@ def library_products(csr, psi):
     for name, fn in forms.items():
         res = fn()
         out[name] = (torch.stack(res) if isinstance(res, list) else res,
-                     _median_ms(fn, 50), _median_ms(fn, 10, 20))
+                     _median_ms(fn, reps),
+                     _median_ms(fn, max(reps // 5, 3), max(reps // 5, 3)))
     return out
+
+
+def ell_rows(name, diag, el_t, tgt_t, gen, table_s, reps=50):
+    """The ELL kernel on one table at B = 1 and 2: held against its plain
+    version (0.0) and cuSPARSE, timed beside both and its bound.  Prints
+    and returns one row per (B, route)."""
+    import torch
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    c, n = el_t.shape
+    csr = csr_of_ell(diag, el_t, tgt_t)
+    routes = ((True, False) if ell.psi_fits_on_chip(n, 2) else (False,))
+    rows = []
+    for b in (1, 2):
+        psi = torch.randn((b, n), generator=gen, device="cuda")
+        plain = ell.ell_spmv_reference(diag, el_t, tgt_t, psi)
+        plain_ms = _median_ms(lambda: ell.ell_spmv_reference(
+            diag, el_t, tgt_t, psi), 5)
+        lib = library_products(csr, psi, reps)
+        bound_ms, bound_by = bound(8.0 * c * n + 4.0 * n * (1 + 2 * b),
+                                   2.0 * b * c * n)
+        for on_chip in routes:
+            if not ell.psi_fits_on_chip(n, b) and on_chip:
+                continue
+            got = ell.ell_spmv_cuda(diag, el_t, tgt_t, psi,
+                                    psi_on_chip=on_chip)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            scale = float(plain.abs().max())
+            lib_err = max(float((got - out).abs().max())
+                          for out, _, _ in lib.values())
+            if not err <= ELL_TOL:
+                raise RuntimeError(f"{name} B={b} on_chip={on_chip}: "
+                                   f"kernel vs plain {err} > {ELL_TOL}")
+            if not lib_err <= CSR_RTOL * scale:
+                raise RuntimeError(f"{name} B={b}: cuSPARSE vs kernel "
+                                   f"{lib_err} > {CSR_RTOL} * {scale}")
+            call = (lambda: ell.ell_spmv_cuda(
+                diag, el_t, tgt_t, psi, psi_on_chip=on_chip))
+            ms = _median_ms(call, reps)
+            device_ms = _median_ms(call, 10, max(reps // 5 * 2, 4))
+            best = min((k for k in lib if b == 1 or "each" not in k),
+                       key=lambda k: lib[k][1])
+            row = {"table": name, "N": n, "C": c, "B": b,
+                   "segments": ell.ell_segments(n, c),
+                   "psi_on_chip": on_chip,
+                   "max_abs_err": err, "max_abs_plain": scale,
+                   "csr_max_abs_diff": lib_err,
+                   "ms": ms, "device_ms": device_ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": lib[best][1],
+                   "library_device_ms": lib[best][2],
+                   "library_call": best,
+                   "library_forms_ms": {k: v[1:] for k, v in lib.items()},
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / ms,
+                   "device_bound_share": bound_ms / device_ms,
+                   "table_bytes": 8 * c * n + 4 * n,
+                   "table_build_s": table_s}
+            rows.append(row)
+            print("ell_spmv: " + json.dumps(row))
+    return rows
 
 
 def phase_kernel():
     import torch
     from flow_guided_krylov_torch.hamiltonians import (
         create_n2_hamiltonian, create_synthetic_hamiltonian)
-    from flow_guided_krylov_torch.ops import ell_spmv as ell
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -235,57 +333,8 @@ def phase_kernel():
         diag, el_t, tgt_t = ell_tables(h)
         torch.cuda.synchronize()
         table_s = time.perf_counter() - t0
-        c, n = el_t.shape
-        csr = csr_of_ell(diag, el_t, tgt_t)
-        routes = ((True, False) if ell.psi_fits_on_chip(n, 2) else (False,))
-        for b in (1, 2):
-            psi = torch.randn((b, n), generator=gen, device="cuda")
-            plain = ell.ell_spmv_reference(diag, el_t, tgt_t, psi)
-            plain_ms = _median_ms(lambda: ell.ell_spmv_reference(
-                diag, el_t, tgt_t, psi), 5)
-            lib = library_products(csr, psi)
-            bound_ms, bound_by = bound(8.0 * c * n + 4.0 * n * (1 + 2 * b),
-                                       2.0 * b * c * n)
-            for on_chip in routes:
-                if not ell.psi_fits_on_chip(n, b) and on_chip:
-                    continue
-                got = ell.ell_spmv_cuda(diag, el_t, tgt_t, psi,
-                                        psi_on_chip=on_chip)
-                torch.cuda.synchronize()
-                err = float((got - plain).abs().max())
-                scale = float(plain.abs().max())
-                lib_err = max(float((got - out).abs().max())
-                              for out, _, _ in lib.values())
-                if not err <= ELL_TOL:
-                    raise RuntimeError(f"{name} B={b} on_chip={on_chip}: "
-                                       f"kernel vs plain {err} > {ELL_TOL}")
-                if not lib_err <= CSR_RTOL * scale:
-                    raise RuntimeError(f"{name} B={b}: cuSPARSE vs kernel "
-                                       f"{lib_err} > {CSR_RTOL} * {scale}")
-                call = (lambda: ell.ell_spmv_cuda(
-                    diag, el_t, tgt_t, psi, psi_on_chip=on_chip))
-                ms = _median_ms(call, 50)
-                device_ms = _median_ms(call, 10, 20)
-                best = min((k for k in lib if b == 1 or "each" not in k),
-                           key=lambda k: lib[k][1])
-                row = {"table": name, "N": n, "C": c, "B": b,
-                       "segments": ell.ell_segments(n, c),
-                       "psi_on_chip": on_chip,
-                       "max_abs_err": err, "max_abs_plain": scale,
-                       "csr_max_abs_diff": lib_err,
-                       "ms": ms, "device_ms": device_ms,
-                       "plain_ms": plain_ms,
-                       "library_ms": lib[best][1],
-                       "library_device_ms": lib[best][2],
-                       "library_call": best,
-                       "library_forms_ms": {k: v[1:] for k, v in lib.items()},
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_share": bound_ms / ms,
-                       "device_bound_share": bound_ms / device_ms,
-                       "table_build_s": table_s}
-                rows.append(row)
-                print("ell_spmv: " + json.dumps(row))
-        del diag, el_t, tgt_t, h, csr
+        rows += ell_rows(name, diag, el_t, tgt_t, gen, table_s)
+        del diag, el_t, tgt_t, h
         torch.cuda.empty_cache()
     return rows
 
@@ -455,8 +504,9 @@ def phase_slice(device="cuda", molecule="n2"):
     h = MOLECULE_FACTORIES[molecule](device)
     t0 = time.perf_counter()
     fci = h.fci_energy()
+    fci_s = time.perf_counter() - t0
     print(f"{molecule} fci: {fci:.6f} Ha (n2 reference {FCI_N2_REF}), "
-          f"oracle {time.perf_counter() - t0:.2f} s")
+          f"oracle {fci_s:.2f} s")
     if molecule == "n2" and abs(fci - FCI_N2_REF) > 1e-5:
         raise RuntimeError(f"N2 FCI {fci} vs reference {FCI_N2_REF}")
 
@@ -523,7 +573,7 @@ def phase_slice(device="cuda", molecule="n2"):
     print("evolve vs scipy max abs err: " + repr(evolve_err))
     print(f"evolve times (m=30 Lanczos, N={skqd.dim}): "
           + json.dumps(times))
-    return launches
+    return {"launches": launches, "fci": fci, "fci_s": fci_s}
 
 
 def stage1_twice(h, epochs):
@@ -890,9 +940,585 @@ def profile_evolve(skqd, re, im):
             "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
 
 
+def profile_call(fn, kernel="ell_spmv"):
+    """Device time of one warm call of ``fn`` by kernel, from
+    torch.profiler: the named kernel's share, its launches, and the
+    device's busy share of the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us, count = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = ev.device_time_total
+            count[ev.key] = ev.count
+    total = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_ms, "device_ms": total,
+            "busy_share": total / wall_ms,
+            kernel + "_ms": sum(v for k, v in dev_us.items()
+                                if kernel in k) / 1e3,
+            kernel + "_launches": sum(v for k, v in count.items()
+                                      if kernel in k),
+            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
+
+
+def warm_evolve_ms(skqd, psi, reps=3):
+    """Median host wall of ``reps`` warm ``evolve`` calls (each ends with
+    the state back on the host), in ms."""
+    skqd.evolve(psi)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        skqd.evolve(psi)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def seeded_eigsh_check(skqd, rows, cuda):
+    """The projected eigensolve of a sampled spin basis above
+    ``SEEDED_EIGSH_MIN_ROWS`` states, where a device ELL Lanczos vector
+    seeds the host ``eigsh``: the first ``rows`` states of the subspace
+    stand in for a sampled basis, against the same ``eigsh`` unseeded."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    basis = skqd.subspace[:rows]
+    if not rows > skqd.SEEDED_EIGSH_MIN_ROWS:
+        raise RuntimeError(f"{rows} rows do not reach the seeded branch")
+    before = ell.ell_spmv_cuda.launches
+    t0 = time.perf_counter()
+    e_seeded = skqd.compute_ground_state_energy(basis)
+    if cuda:
+        torch.cuda.synchronize()
+    seeded_s = time.perf_counter() - t0
+    n_launch = ell.ell_spmv_cuda.launches - before
+    t0 = time.perf_counter()
+    M = skqd.h.to_sparse(basis)
+    reg = skqd.config.regularization
+    M = (M + M.T) * 0.5 + reg * sp.eye(rows)
+    e_plain = float(spla.eigsh(M, k=1, which="SA",
+                               return_eigenvectors=False).min() - reg)
+    plain_s = time.perf_counter() - t0
+    if cuda and n_launch <= 0:
+        raise RuntimeError("the seeded eigsh never launched the ELL kernel")
+    if not abs(e_seeded - e_plain) < REFINED_TOL:
+        raise RuntimeError(f"seeded eigsh {e_seeded} vs unseeded {e_plain}")
+    return {"rows": rows, "energy": e_seeded, "gap_to_unseeded":
+            e_seeded - e_plain, "seeded_s": seeded_s, "unseeded_s": plain_s,
+            "ell_launches": n_launch}
+
+
+def phase_sector(device="cuda", rehearsal=False):
+    """Path A: sector SKQD on the open Heisenberg chain with its device
+    oracle, at the whole C(24, 12) sector, where ``auto`` routes to ELL.
+    ``rehearsal`` runs 12 sites at fewer shots and steps and names
+    ``ell``, for a run without a card."""
+    n_sites, shots, krylov_dim, evolution = (
+        (12, 5_000, 3, "ell") if rehearsal else (24, 100_000, 6, "auto"))
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    from flow_guided_krylov_torch.krylov import (
+        SampleBasedKrylovDiagonalization, SKQDConfig)
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.utils.memory import MemoryBudget
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    ham = HeisenbergHamiltonian(
+        n_sites, 1.0, 1.0, 1.0, h_z=np.array([0.1] + [0.0] * (n_sites - 1)),
+        device=device)
+    neel = np.array([sum(1 << i for i in range(0, n_sites, 2))], np.uint32)
+    cfg = SKQDConfig(max_krylov_dim=krylov_dim, shots_per_krylov=shots,
+                     time_step=0.1, lanczos_dim=12, seed=0,
+                     evolution=evolution)
+
+    # ---- the main path: sector SKQD, counted launches ------------------
+    ell.ell_spmv_cuda.launches = 0
+    t0 = time.perf_counter()
+    skqd = SampleBasedKrylovDiagonalization(ham, cfg, initial_state=neel)
+    out = skqd.run(final_only=True)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = ell.ell_spmv_cuda.launches
+    # ---------------------------------------------------------------------
+
+    n, c = skqd.dim, ham.n_connections
+    expected = (krylov_dim - 1) * min(cfg.lanczos_dim, n)
+    if skqd.use_trotter or skqd._ell is None:
+        raise RuntimeError("sector SKQD did not take the ELL path")
+    if cuda and launches != expected:
+        raise RuntimeError(f"sector SKQD launched the ELL kernel {launches} "
+                           f"times, expected {expected}")
+
+    # ---- the oracle: device ELL Lanczos over the whole sector -----------
+    m_fit = MemoryBudget.for_device(ham.device).lanczos_ell_m(n, c, m_max=120)
+    restarts = max(1, -(-120 // m_fit))
+    before = ell.ell_spmv_cuda.launches
+    t0 = time.perf_counter()
+    e_oracle = skqd.exact_subspace_energy(refine_host=False)
+    sync()
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = ell.ell_spmv_cuda.launches - before
+
+    e = out["final_energy"]
+    res = {"model": f"heisenberg{n_sites}", "sector_dim": n, "C": c,
+           "krylov_dim": krylov_dim, "shots": shots,
+           "energy": e, "basis_size": out["basis_sizes"][-1],
+           "basis_sizes": out["basis_sizes"],
+           "oracle_device_energy": e_oracle,
+           "error_mha": 1000 * (e - e_oracle), "wall_s": wall,
+           "ell_launches": launches,
+           "oracle": {"lanczos_m": min(m_fit, n), "restarts": restarts,
+                      "seconds": oracle_s, "ell_launches": oracle_launches},
+           "reference_records_k12": {
+               "100k shots": [31_804, -10.0172],
+               "1M shots": [181_228, -10.2920]}}
+    if cuda and not 0 < oracle_launches <= min(m_fit, n) * restarts:
+        raise RuntimeError(f"the oracle launched the ELL kernel "
+                           f"{oracle_launches} times")
+    if not e >= e_oracle - 1e-6:
+        raise RuntimeError(f"variational violation: {e} < {e_oracle}")
+    if n_sites == 24:
+        res["oracle"]["gap_to_f64_record"] = e_oracle - HEIS24_SECTOR_E
+        if not abs(e_oracle - HEIS24_SECTOR_E) < SECTOR_DEVICE_TOL:
+            raise RuntimeError(f"device oracle {e_oracle} vs the f64 record "
+                               f"{HEIS24_SECTOR_E}")
+        if not e < HEIS24_NEEL_E:
+            raise RuntimeError(f"SKQD energy {e} not below the Neel "
+                               f"product state's {HEIS24_NEEL_E}")
+
+    # ---- checks and timings outside the counted run ----------------------
+    t0 = time.perf_counter()
+    built = skqd._build_ell_device(skqd.subspace)
+    sync()
+    res["table_build_s"] = time.perf_counter() - t0
+    res["table_bytes"] = 8 * c * n + 4 * n
+    if not all(torch.equal(a, b) for a, b in zip(built, skqd._ell)):
+        raise RuntimeError("two builds of the sector table differ")
+    del built
+    psi = np.zeros(n, complex)
+    psi[skqd._index_of(neel)[0]] = 1.0
+    rows = []
+    if cuda:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        rows = ell_rows(f"heisenberg{n_sites}_sector", *skqd._ell, gen,
+                        res["table_build_s"])
+        res["warm_evolve_ms"] = warm_evolve_ms(skqd, psi)
+        res["evolve_profile"] = profile_call(lambda: skqd.evolve(psi))
+    if n > SEEDED_ROWS:
+        res["seeded_eigsh"] = seeded_eigsh_check(skqd, SEEDED_ROWS, cuda)
+    again = SampleBasedKrylovDiagonalization(ham, cfg, initial_state=neel)
+    if again.generate_krylov_samples() != out["samples"]:
+        raise RuntimeError("a second sector run with the same seed sampled "
+                           "another basis")
+    res["samples_equal"] = True
+    print("sector: " + json.dumps(res))
+    return {"launches": launches, "rows": rows}
+
+
+def n2_ccpvdz(device):
+    """N2/cc-pVDZ at 1.10 A, two 1s cores frozen, 14 active orbitals:
+    (5a, 5b) in 14 orbitals, 4,008,004 determinants."""
+    from flow_guided_krylov_torch.chem import (
+        compute_active_space_integrals, compute_molecular_integrals)
+    from flow_guided_krylov_torch.hamiltonians import MolecularHamiltonian
+    ints = compute_molecular_integrals(
+        [("N", (0, 0, 0)), ("N", (0, 0, 1.10))], basis="cc-pvdz")
+    return MolecularHamiltonian(
+        compute_active_space_integrals(ints, n_frozen=2, n_active=14),
+        device)
+
+
+def phase_restricted(device="cuda", rehearsal=False):
+    """Path B: N2/cc-pVDZ (10e, 14o): one Selected-CI round and its exact
+    dE2 against the record, then restricted SKQD at the record's cap
+    (``auto`` routes to ELL past 20,000 states) and, through the
+    pipeline's stage 4, at the device's own cap; and warm dense against
+    ELL evolves at smaller subspaces.  ``rehearsal`` runs a 3,000-state
+    cap named ``ell`` with two crossover sizes and no stage 4, for a run
+    without a card."""
+    cap, evolution, crossover_caps = (
+        (3_000, "ell", (400, 800)) if rehearsal
+        else (N2_DZ["cap"], "auto", (1_000, 2_500, 5_000, 10_000)))
+    shots, krylov_dim = 100_000, 6
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.krylov import (
+        FlowGuidedSKQD, ResidualExpansionConfig, SelectedCIExpander,
+        SKQDConfig, iterative_residual_expansion)
+    from flow_guided_krylov_torch.krylov.skqd import (
+        build_restricted_subspace, supported_evolution_dim)
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    h = n2_ccpvdz(device)
+    res = {"n_valid": h.n_valid_configs, "C": h.n_connections,
+           "hamiltonian_s": time.perf_counter() - t0}
+    hf = h.get_hf_state()
+
+    # ---- one SCI round from HF and its exact dE2 ------------------------
+    t0 = time.perf_counter()
+    sci = iterative_residual_expansion(
+        h, hf[None, :], ResidualExpansionConfig(
+            max_iterations=1, configs_per_iteration=600,
+            residual_threshold=1e-4, stagnation_threshold=1e-6,
+            stagnation_patience=3,
+            max_basis_size=min(h.n_valid_configs, 50_000)),
+        pt2_correct=True)
+    sync()
+    basis, e_var = sci["basis"], float(sci["energy"])
+    exp = SelectedCIExpander(h)
+    _, coeffs = exp._diagonalize(basis)
+    dev_s, corr = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        corr.append(exp.pt2_correction(basis, coeffs, e_var))
+        sync()
+        dev_s.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    host = exp._pt2_correction_host(basis, coeffs, e_var)
+    host_s = time.perf_counter() - t1
+    res["sci"] = {"basis_size": int(len(basis)), "e_var": e_var,
+                  "seconds": time.perf_counter() - t0,
+                  "de2_device": sci["pt2_de2"], "de2_host": host["de2"],
+                  "exact": bool(sci["pt2_exact"]),
+                  "n_external_device": sci["pt2_n_external"],
+                  "n_external_host": host["n_external"],
+                  "de2_device_s": dev_s, "de2_host_s": host_s,
+                  "record": {k: N2_DZ[k] for k in ("basis", "e_var", "de2")}}
+    if not (corr[0] == corr[1] == corr[2]
+            and corr[0]["de2"] == sci["pt2_de2"]):
+        raise RuntimeError(f"pt2_correction calls differ: {corr}")
+    if (len(basis) != N2_DZ["basis"] or not sci["pt2_exact"]
+            or abs(e_var - N2_DZ["e_var"]) > N2_DZ["tol"]
+            or abs(sci["pt2_de2"] - N2_DZ["de2"]) > N2_DZ["tol"]
+            or abs(host["de2"] - N2_DZ["de2"]) > N2_DZ["tol"]):
+        raise RuntimeError(f"one SCI round off the record: {res['sci']}")
+    # float32 couplings that cancel to exactly 0 drop out of the device's
+    # externals: never more than the host's, at most a thousandth fewer
+    if not 0 <= host["n_external"] - sci["pt2_n_external"] \
+            <= 1e-3 * host["n_external"]:
+        raise RuntimeError(f"device and host externals: {res['sci']}")
+
+    def check(name, e, launches, expected):
+        if not 1e-3 < e_var - e:
+            raise RuntimeError(f"{name}: restricted SKQD {e} improves the "
+                               f"{len(basis)}-det energy {e_var} by under "
+                               f"1 mHa")
+        if not e >= e_var + sci["pt2_de2"] - 5e-3:
+            raise RuntimeError(f"{name}: {e} more than 5 mHa below "
+                               f"E_var + dE2")
+        if cuda and launches != expected:
+            raise RuntimeError(f"{name}: {launches} ELL launches, expected "
+                               f"{expected}")
+
+    # ---- the main path: restricted SKQD at the record's cap -------------
+    ell.ell_spmv_cuda.launches = 0
+    t0 = time.perf_counter()
+    states = build_restricted_subspace(h, basis, cap, initial_state=hf)
+    skqd = FlowGuidedSKQD(
+        h, basis, SKQDConfig(max_krylov_dim=krylov_dim,
+                             shots_per_krylov=shots, time_step=0.1,
+                             evolution=evolution),
+        initial_state=hf, subspace_states=states)
+    out = skqd.run_with_nf(final_only=True)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = ell.ell_spmv_cuda.launches
+    # ---------------------------------------------------------------------
+
+    e4 = float(out["best_stable_energy"])
+    n, c = skqd.dim, h.n_connections
+    res["record_cap"] = {
+        "cap": cap, "restricted_dim": n, "krylov_dim": krylov_dim,
+        "energy": e4, "combined_size": out["combined_sizes"][-1],
+        "improvement_mha": 1000 * (e_var - e4), "wall_s": wall,
+        "ell_launches": launches, "table_bytes": 8 * c * n + 4 * n,
+        "record": {k: N2_DZ[k] for k in ("restricted_dim", "combined",
+                                         "improvement_mha")}}
+    if skqd._ell is None:
+        raise RuntimeError("restricted SKQD did not take the ELL path")
+    check("record cap", e4, launches,
+          (krylov_dim - 1) * min(skqd.config.lanczos_dim, n))
+
+    # ---- checks and timings outside the counted run ----------------------
+    t0 = time.perf_counter()
+    built = skqd._build_ell_device(skqd.subspace)
+    sync()
+    res["record_cap"]["table_build_s"] = time.perf_counter() - t0
+    del built
+    psi = np.zeros(n, complex)
+    psi[skqd._index_of(hf)[0]] = 1.0
+    rows = []
+    if cuda:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        rows = ell_rows("n2_ccpvdz_restricted", *skqd._ell, gen,
+                        res["record_cap"]["table_build_s"], reps=20)
+        res["record_cap"]["warm_evolve_ell_ms"] = warm_evolve_ms(skqd, psi)
+        res["record_cap"]["evolve_profile"] = profile_call(
+            lambda: skqd.evolve(psi))
+    # the dense/ELL crossover at a restricted subspace: one warm dense
+    # evolve of the same state beside the ELL one
+    dense = FlowGuidedSKQD(h, basis, SKQDConfig(evolution="dense"),
+                           initial_state=hf, subspace_states=states)
+    t0 = time.perf_counter()
+    got = dense.evolve(psi)
+    res["record_cap"]["dense_first_s"] = time.perf_counter() - t0
+    res["record_cap"]["warm_evolve_dense_ms"] = warm_evolve_ms(dense, psi)
+    res["record_cap"]["dense_vs_ell_max_abs"] = float(
+        np.abs(got - skqd.evolve(psi)).max())
+    if not res["record_cap"]["dense_vs_ell_max_abs"] < 1e-4:
+        raise RuntimeError("dense and ELL evolves disagree: "
+                           f"{res['record_cap']['dense_vs_ell_max_abs']}")
+    del dense, got
+    # and at smaller subspaces of the same Hamiltonian, each way
+    res["crossover"] = []
+    for small in crossover_caps:
+        sub = build_restricted_subspace(h, basis, small,
+                                        initial_state=hf)
+        row = {"dim": len(sub)}
+        for mode in ("ell", "dense"):
+            s = FlowGuidedSKQD(h, basis, SKQDConfig(evolution=mode),
+                               initial_state=hf, subspace_states=sub)
+            start = np.zeros(s.dim, complex)
+            start[s._index_of(hf)[0]] = 1.0
+            t0 = time.perf_counter()
+            s.evolve(start)
+            row[mode + "_first_s"] = time.perf_counter() - t0
+            row[mode + "_warm_ms"] = warm_evolve_ms(s, start)
+            del s
+        res["crossover"].append(row)
+    del skqd, states
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the main path again: the pipeline's stage 4 at the card's cap --
+    full_launches = 0
+    if not rehearsal:
+        pipe = FlowGuidedKrylovPipeline(h, PipelineConfig(seed=0,
+                                                          verbose=False))
+        pipe.config.max_krylov_dim = krylov_dim   # the tier sets 10
+        pipe.nf_basis = basis
+        pipe.results["stage3"] = {"energy": e_var, "basis": basis}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ell.ell_spmv_cuda.launches = 0
+        t0 = time.perf_counter()
+        stage4 = pipe.run_skqd()
+        sync()
+        wall = time.perf_counter() - t0
+        full_launches = ell.ell_spmv_cuda.launches
+        if stage4["skipped"]:
+            raise RuntimeError(f"stage 4 skipped: {stage4['reason']}")
+        n = stage4["restricted_dim"]
+        res["card_cap"] = {
+            "cap": supported_evolution_dim(h), "restricted_dim": n,
+            "krylov_dim": krylov_dim,
+            "shots": pipe.config.shots_per_krylov,
+            "energy": stage4["skqd_energy"],
+            "combined_sizes": stage4["skqd"]["combined_sizes"],
+            "improvement_mha": 1000 * (e_var - stage4["skqd_energy"]),
+            "wall_s": wall, "ell_launches": full_launches,
+            "table_bytes": 8 * c * n + 4 * n,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else None)}
+        check("card cap", stage4["skqd_energy"], full_launches,
+              (krylov_dim - 1) * min(30, n))
+        del pipe, stage4
+        if cuda:
+            torch.cuda.empty_cache()
+            # the kernel and one evolve at this width, outside the run
+            states = build_restricted_subspace(h, basis,
+                                               supported_evolution_dim(h),
+                                               initial_state=hf)
+            wide = FlowGuidedSKQD(h, basis, SKQDConfig(), initial_state=hf,
+                                  subspace_states=states)
+            t0 = time.perf_counter()
+            wide._ell_structure()
+            sync()
+            res["card_cap"]["table_build_s"] = time.perf_counter() - t0
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            rows += ell_rows("n2_ccpvdz_restricted_card_cap", *wide._ell,
+                             gen, res["card_cap"]["table_build_s"], reps=10)
+            psi = np.zeros(wide.dim, complex)
+            psi[wide._index_of(hf)[0]] = 1.0
+            res["card_cap"]["warm_evolve_ell_ms"] = warm_evolve_ms(wide, psi)
+            del wide, states
+            torch.cuda.empty_cache()
+    print("restricted: " + json.dumps(res))
+    return {"launches": launches + full_launches, "rows": rows}
+
+
+def dense_from_ell(diag, el_t, tgt_t):
+    """The (N, N) float32 matrix of an ELL table (a scatter of distinct
+    (target, row) pairs, zero elements landing on (0, row))."""
+    import torch
+    c, n = el_t.shape
+    H = torch.zeros((n, n), dtype=torch.float32, device=diag.device)
+    cols = torch.arange(n, device=diag.device).expand(c, n)
+    H.index_put_((tgt_t.long().reshape(-1), cols.reshape(-1)),
+                 el_t.reshape(-1), accumulate=True)
+    H.diagonal().add_(diag)
+    return H
+
+
+def phase_eigensolvers(fci, fci_s, device="cuda", rehearsal=False):
+    """Path C: the device eigensolvers against N2's FCI energy (``fci``,
+    found in ``fci_s`` seconds by the host ``eigsh``) and TFIM-20/24's
+    free-fermion energy.  ``rehearsal`` takes LiH's FCI energy and runs
+    LiH and TFIM-10/12, for a run without a card."""
+    from unittest import mock
+    molecule, refined_sites, device_sites = (
+        ("lih", 10, 12) if rehearsal else ("n2", 20, 24))
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import (MOLECULE_FACTORIES,
+                                                       TransverseFieldIsing)
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.postprocessing.eigensolver import (
+        _build_fullspace_ell_device, exact_fullspace_ground_state,
+        lanczos_ground_state, lanczos_ground_state_ell)
+    from flow_guided_krylov_torch.utils import memory
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def tfim(n):
+        return TransverseFieldIsing(n, V=1.0, h=1.0, periodic=True,
+                                    device=device)
+
+    def timed(fn):
+        sync()
+        before = ell.ell_spmv_cuda.launches
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0, \
+            ell.ell_spmv_cuda.launches - before
+
+    ell.ell_spmv_cuda.launches = 0
+    res = {"host_eigsh_s": fci_s}
+    h = MOLECULE_FACTORIES[molecule](device)
+    tables = ell_tables(h)
+    m = min(120, h.n_valid_configs)
+    (e_ell, _), s_ell, n_ell = timed(
+        lambda: lanczos_ground_state_ell(*tables, m=m, restarts=2))
+    H = dense_from_ell(*tables)
+    (e_dense, _), s_dense, _ = timed(lambda: lanczos_ground_state(H, m=m))
+    del H
+    basis = h.enumerate_basis()
+    seeded, s_seeded, _ = (timed(lambda: h._device_ground_state(basis))
+                           if len(basis) <= 20_000 else (None, None, 0))
+    f64 = dict(dtype=torch.float64, device=device)
+    T = torch.diag(torch.randn(120, **f64)) + torch.diag(
+        torch.randn(119, **f64), 1)
+    T = T + T.T
+    _, s_eigh, _ = timed(lambda: torch.linalg.eigh(T))
+    res[molecule] = {
+        "fci": fci, "m": m, "ell": {"energy": e_ell, "gap": e_ell - fci,
+                                    "restarts": 2, "seconds": s_ell,
+                                    "ell_launches": n_ell},
+        "dense": {"energy": e_dense, "gap": e_dense - fci,
+                  "seconds": s_dense},
+        "eigh_120_s": s_eigh, "eigh_share_of_ell_solve": 2 * s_eigh / s_ell}
+    if seeded is not None:
+        res[molecule]["device_seeded_eigsh"] = {
+            "energy": float(seeded[0][0]), "gap": float(seeded[0][0]) - fci,
+            "seconds": s_seeded}
+        if not abs(float(seeded[0][0]) - fci) < REFINED_TOL:
+            raise RuntimeError(f"_device_ground_state {seeded[0][0]} vs "
+                               f"FCI {fci}")
+    for name, e in (("ell", e_ell), ("dense", e_dense)):
+        if not abs(e - fci) < EIGENSOLVER_TOL:
+            raise RuntimeError(f"lanczos_ground_state {name}: {e} vs FCI "
+                               f"{fci}")
+    if cuda and n_ell <= 0:
+        raise RuntimeError("lanczos_ground_state_ell never launched the "
+                           "ELL kernel")
+    del tables
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # memory alone picks the route: the tables fit the device, and the
+    # table-free flips are reached by reporting a budget that holds six
+    # 2^n vectors and no table
+    runs = ((refined_sites, True, "ell-fused"),
+            (refined_sites, False, "flip-stepped"),
+            (device_sites, False, "ell-fused"))
+    e_fused = None
+    for n, refine, route in runs:
+        ham = tfim(n)
+        exact = tfim_free_fermion_energy(n, 1.0, 1.0)
+        small = mock.patch.object(memory, "device_memory_bytes",
+                                  lambda device, n=n: 64 * 4 << n)
+        with small if route == "flip-stepped" else contextlib.nullcontext():
+            out, secs, n_launch = timed(lambda: exact_fullspace_ground_state(
+                ham, refine_host=refine, use_cache=False, verbose=False))
+        out.update(exact=exact, gap=out["energy"] - exact,
+                   device_gap=out["e_device"] - exact, seconds=secs,
+                   ell_launches=n_launch)
+        res[f"tfim{n}" + ("_refined" if refine else "_" + out["route"])] = out
+        tol = REFINED_TOL if refine else EIGENSOLVER_TOL
+        if not abs(out["gap"]) < tol:
+            raise RuntimeError(f"TFIM-{n} {out['route']}: {out['energy']} vs "
+                               f"{exact} (tolerance {tol})")
+        if out["route"] != route:
+            raise RuntimeError(f"TFIM-{n} took {out['route']}, not {route}")
+        if refine:
+            e_fused = out["e_device"]
+        if route == "flip-stepped":
+            out["gap_to_ell_fused"] = out["e_device"] - e_fused
+            if n_launch or not abs(out["gap_to_ell_fused"]) \
+                    < EIGENSOLVER_TOL:
+                raise RuntimeError(f"flip-stepped {out['e_device']} vs "
+                                   f"ell-fused {e_fused}")
+        elif cuda and n_launch != out["lanczos_m"] * out["restarts"]:
+            # restarts end early only when a restart changes nothing
+            if not 0 < n_launch < out["lanczos_m"] * out["restarts"]:
+                raise RuntimeError(f"TFIM-{n}: {n_launch} ELL launches")
+    launches = ell.ell_spmv_cuda.launches
+    rows = []
+    if cuda:
+        # the kernel at both full-space identity tables the runs above
+        # drove, outside the count
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        for n in (refined_sites, device_sites):
+            t0 = time.perf_counter()
+            tables = _build_fullspace_ell_device(tfim(n))
+            sync()
+            rows += ell_rows(f"tfim{n}_fullspace", *tables, gen,
+                             time.perf_counter() - t0, reps=20)
+            del tables
+            torch.cuda.empty_cache()
+    print("eigensolvers: " + json.dumps(res))
+    return {"launches": launches, "rows": rows}
+
+
 def main():
     os.environ.setdefault("FGK_INTEGRAL_CACHE",
                           os.path.join(ROOT, ".fgk_cache"))
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -903,9 +1529,21 @@ def main():
     rows = phase_kernel()
     sweep_rows = phase_x_sweep()
     phase_sweep_parts()
-    launches = phase_slice()
-    phase_pipeline()
+    n2 = phase_slice()
+    # 200 of the tier's 600 epochs: the accumulated-basis host eigensolves
+    # of epochs 200 and 400 (tens of seconds each) make room for the
+    # phases below
+    phase_pipeline(max_epochs=200)
     spin = phase_spin()
+    sector = phase_sector()
+    restricted = phase_restricted()
+    eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
+    rows += sector["rows"] + restricted["rows"] + eigen["rows"]
+    by_path = {"n2_stage4": n2["launches"], "sector": sector["launches"],
+               "restricted": restricted["launches"],
+               "eigensolvers": eigen["launches"]}
+    if min(by_path.values()) <= 0:
+        raise RuntimeError(f"a path never launched the ELL kernel: {by_path}")
     main_row = next(r for r in rows if r["table"] == "n2" and r["B"] == 2
                     and r["psi_on_chip"])
     low = next(r for r in sweep_rows
@@ -914,17 +1552,24 @@ def main():
     high = next(r for r in sweep_rows
                 if r["n"] == 24 and r["words"] == "tfim_high"
                 and not r["reverse"])
+    shapes = [{k: r[k] for k in ("table", "N", "C", "B", "segments",
+                                 "psi_on_chip", "ms", "device_ms",
+                                 "plain_ms", "bound_ms", "bound_share",
+                                 "device_bound_share", "library_ms")}
+              for r in rows if not r["table"].startswith(("n2", "synth"))
+              or r["table"].startswith("n2_ccpvdz")]
     kernels = {"kernels": [{
         "name": "ell_spmv", "route": "cuda",
         "source": "flow_guided_krylov_torch/csrc/ell_spmv.cu",
         "replaces": "flow_guided_krylov_tpu/ops/pallas_spmv.py:50",
-        "launches": launches,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "bound_share": main_row["bound_share"],
-        "library_ms": main_row["library_ms"]}, {
+        "library_ms": main_row["library_ms"],
+        "other_shapes": shapes}, {
         "name": "x_sweep", "route": "cuda",
         "source": "flow_guided_krylov_torch/csrc/x_sweep.cu",
         "replaces": "flow_guided_krylov_tpu/ops/pallas_trotter.py:66",
@@ -938,6 +1583,7 @@ def main():
         "gathered_bound_ms": high["bound_ms"]}]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": device}))
 

@@ -16,6 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+import torch
+
+from ..ops.bits import keys_device
 
 __all__ = ["Hamiltonian"]
 
@@ -70,6 +73,23 @@ class Hamiltonian(ABC):
         kk[:, 0] = flat[:, 1]        # low word: beta
         kk[:, 1] = flat[:, 0]        # high word: alpha
         return kk.view(np.uint64)[:, 0].reshape(packed.shape[:-1])
+
+    def keys_device(self, packed: torch.Tensor) -> torch.Tensor:
+        """(..., W) int64 device words -> (...) int64 sort/search keys
+        that order like :meth:`keys`: the word itself at W = 1 (below
+        2^31, so signed order is unsigned order), ``ops.bits.keys_device``
+        at W = 2."""
+        if self.pack_words == 1:
+            return packed[..., 0]
+        return keys_device(packed)
+
+    def keys_to_host(self, keys: torch.Tensor) -> np.ndarray:
+        """Device keys of :meth:`keys_device` -> the host uint64 keys of
+        :meth:`keys` (``unkey`` then gives the packed rows)."""
+        k = keys.cpu().numpy()
+        if self.pack_words == 1:
+            return k.astype(np.uint64)
+        return k.view(np.uint64) ^ np.uint64(1 << 63)
 
     def unkey(self, keys: np.ndarray) -> np.ndarray:
         """(B,) uint64 keys -> (B, W) uint32 packed rows (inverse of

@@ -13,11 +13,13 @@ bit i):
 * :func:`extract_coeffs_and_paulis` — spin H -> Pauli words, the input of
   the Trotter propagator and the circuit sampler.
 
-Matrix elements are host f64, as in the JAX package; the spin path's
-device work is the statevector Trotter propagator in ``krylov/skqd.py``.
+Matrix elements are host f64, as in the JAX package.  The device work
+is the statevector Trotter propagator in ``krylov/skqd.py``, the device
+closures ``diagonal_device`` / ``connections_device`` (float32 elements
+over int64 words, the source of the sector and full-space ELL tables) and
+the table-free full-space product :meth:`_SpinBase.apply_statevector`.
 The Hamiltonian names the device that work runs on (``device=``).  The
-two-word layout (32..64 sites), the full-space statevector routes and the
-device connection closures are not ported yet.
+two-word layout (32..64 sites) is not ported yet.
 """
 
 from __future__ import annotations
@@ -79,6 +81,44 @@ def _spins(packed: np.ndarray, n: int) -> np.ndarray:
     return 2.0 * bits.astype(np.float64) - 1.0
 
 
+def _flip1(v: np.ndarray, i: int, n: int) -> np.ndarray:
+    """``v`` reindexed with basis bit ``i`` flipped: one slab-swap copy
+    (no index arrays)."""
+    return v.reshape(1 << (n - 1 - i), 2, 1 << i)[:, ::-1, :].reshape(-1)
+
+
+def _flip2_anti(v: np.ndarray, i: int, j: int, n: int) -> np.ndarray:
+    """``v`` reindexed with bits ``i < j`` both flipped, zeroed wherever
+    the output configuration is aligned at (i, j).
+
+    This is the XXZ flip-flop stencil: output x receives v[x ^ mask] iff x
+    (equivalently its source) is antiparallel on the bond, and alignment
+    is invariant under the double flip."""
+    a, b, c = 1 << (n - 1 - j), 1 << (j - 1 - i), 1 << i
+    w = v.reshape(a, 2, b, 2, c)[:, ::-1, :, ::-1, :].copy()
+    w[:, 0, :, 0, :] = 0.0
+    w[:, 1, :, 1, :] = 0.0
+    return w.reshape(-1)
+
+
+def _flip1_device(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Device twin of :func:`_flip1`: a slab reshape and an axis reverse
+    (``flip`` copies, so each call makes one new N-vector).  The JAX
+    package's lane-permutation matmuls and rolls answer the TPU's (8, 128)
+    tiling and have no counterpart here."""
+    return v.view(1 << (n - 1 - i), 2, 1 << i).flip(1).reshape(-1)
+
+
+def _flip2_anti_device(v: torch.Tensor, i: int, j: int, n: int
+                       ) -> torch.Tensor:
+    """Device twin of :func:`_flip2_anti` (``i < j``)."""
+    a, b, c = 1 << (n - 1 - j), 1 << (j - 1 - i), 1 << i
+    w = v.view(a, 2, b, 2, c).flip((1, 3))
+    anti = torch.tensor([[0.0, 1.0], [1.0, 0.0]], dtype=v.dtype,
+                        device=v.device).view(1, 2, 1, 2, 1)
+    return (w * anti).reshape(-1)
+
+
 class _SpinBase(Hamiltonian):
     pack_words = 1
 
@@ -86,11 +126,81 @@ class _SpinBase(Hamiltonian):
         self.pack_words = _spin_words(num_spins)
         self.n_sites = num_spins
         self.device = torch.device(device)
+        self._device_ops = None
+        self._full_diag_np: Optional[np.ndarray] = None
 
     def exact_dense(self) -> np.ndarray:
         """Dense H over the full 2^n space (for n <= ~14; test oracle)."""
         states = np.arange(1 << self.n_sites, dtype=np.uint32)[:, None]
         return self.matrix_elements(states, states)
+
+    # -- device closures (float32 over int64 words) ------------------------
+
+    def _ops(self):
+        if self._device_ops is None:
+            self._device_ops = _spin_device_ops(self)
+        return self._device_ops
+
+    def diagonal_device(self, packed: torch.Tensor) -> torch.Tensor:
+        """(B, 1) int64 words on ``self.device`` -> (B,) float32."""
+        return self._ops()[0](packed)
+
+    @property
+    def connections_device(self):
+        """f(packed (B, 1) int64) -> ((B, C, 1) int64, (B, C) float32) on
+        ``self.device``; every configuration has the same C flip slots,
+        a forbidden flip carrying a zero element."""
+        return self._ops()[1]
+
+    # -- host f64 full-space statevector application -----------------------
+    #
+    # An independent formulation of H (slab bit-flip reshapes, not the
+    # packed connections): the host refine of the full-2^n eigensolves
+    # (``postprocessing.eigensolver.exact_fullspace_ground_state``).
+
+    def full_diagonal_np(self) -> np.ndarray:
+        """f64 diagonal over the full 2^n space (chunked, cached)."""
+        if self._full_diag_np is None:
+            dim = 1 << self.n_sites
+            out = np.empty(dim, np.float64)
+            step = 1 << 20
+            for s in range(0, dim, step):
+                states = np.arange(s, min(s + step, dim),
+                                   dtype=np.uint32)[:, None]
+                out[s:s + len(states)] = self.diagonal_np(states)
+            self._full_diag_np = out
+        return self._full_diag_np
+
+    def apply_statevector_np(self, v: np.ndarray,
+                             diag: Optional[np.ndarray] = None) -> np.ndarray:
+        """H @ v over the full 2^n space, float64, on the host."""
+        n = self.n_sites
+        v = np.asarray(v, np.float64).reshape(-1)
+        if v.shape[0] != (1 << n):
+            raise ValueError(f"expected a full 2^{n} statevector")
+        out = (self.full_diagonal_np() if diag is None else diag) * v
+        self._apply_offdiag_np(v, out)
+        return out
+
+    def _apply_offdiag_np(self, v: np.ndarray, out: np.ndarray) -> None:
+        raise NotImplementedError
+
+    # -- device (f32) full-space statevector application --------------------
+    #
+    # The table-free route of the full-2^n eigensolves: the identity-basis
+    # ELL tables cost 8 * C * 2^n bytes, the flips store nothing but the
+    # vectors.
+
+    def apply_statevector(self, v: torch.Tensor, diag: torch.Tensor
+                          ) -> torch.Tensor:
+        """H @ v over the full 2^n space on ``v``'s device (float32 slab
+        bit flips).  ``diag`` is the (2^n,) float32 diagonal
+        (``postprocessing.eigensolver.full_diagonal_device``)."""
+        return self._apply_offdiag(v, diag * v)
+
+    def _apply_offdiag(self, v: torch.Tensor, out: torch.Tensor
+                       ) -> torch.Tensor:
+        raise NotImplementedError
 
 
 class HeisenbergHamiltonian(_SpinBase):
@@ -164,6 +274,33 @@ class HeisenbergHamiltonian(_SpinBase):
         el = np.stack(elems, axis=1)
         return conn.astype(np.uint32), el
 
+    def _apply_offdiag_np(self, v: np.ndarray, out: np.ndarray) -> None:
+        n = self.n_sites
+        jxy = (self.Jx + self.Jy) / 4.0
+        if abs(jxy) > 1e-15:
+            for i, j in self.bonds:
+                lo, hi = (i, j) if i < j else (j, i)
+                out += jxy * _flip2_anti(v, lo, hi, n)
+        if self._has_x_field:
+            for i in range(n):
+                if abs(self.h_x[i]) > 1e-12:
+                    out += (self.h_x[i] / 2.0) * _flip1(v, i, n)
+
+    def _apply_offdiag(self, v: torch.Tensor, out: torch.Tensor
+                       ) -> torch.Tensor:
+        n = self.n_sites
+        jxy = float((self.Jx + self.Jy) / 4.0)
+        if abs(jxy) > 1e-15:
+            for i, j in self.bonds:
+                lo, hi = (i, j) if i < j else (j, i)
+                out = out + jxy * _flip2_anti_device(v, lo, hi, n)
+        if self._has_x_field:
+            for i in range(n):
+                hx = float(self.h_x[i])
+                if abs(hx) > 1e-12:
+                    out = out + (hx / 2.0) * _flip1_device(v, i, n)
+        return out
+
 
 class TransverseFieldIsing(_SpinBase):
     def __init__(self, num_spins: int, V: float = 1.0, h: float = 1.0,
@@ -199,6 +336,21 @@ class TransverseFieldIsing(_SpinBase):
         conn = np.stack(conns, axis=1)                  # (B, C, 1)
         el = np.full((packed.shape[0], self.n_sites), -self.h)
         return conn.astype(np.uint32), el
+
+    def _apply_offdiag_np(self, v: np.ndarray, out: np.ndarray) -> None:
+        n = self.n_sites
+        acc = _flip1(v, 0, n)
+        for i in range(1, n):
+            acc += _flip1(v, i, n)
+        out -= self.h * acc
+
+    def _apply_offdiag(self, v: torch.Tensor, out: torch.Tensor
+                       ) -> torch.Tensor:
+        n = self.n_sites
+        acc = _flip1_device(v, 0, n)
+        for i in range(1, n):
+            acc = acc + _flip1_device(v, i, n)
+        return out - float(self.h) * acc
 
 
 def create_heisenberg_hamiltonian(num_spins: int, Jx: float = 1.0,
@@ -253,3 +405,80 @@ def extract_coeffs_and_paulis(hamiltonian) -> Tuple[List[float], List[str]]:
     else:
         raise TypeError(f"unsupported Hamiltonian {type(hamiltonian)}")
     return coeffs, words
+
+
+# ---------------------------------------------------------------------------
+# Device closures: static-shape spin connections over int64 words
+# ---------------------------------------------------------------------------
+
+def _spin_device_ops(ham):
+    """(diagonal_fn, connections_fn) in torch for a spin H on
+    ``ham.device``, one word per configuration: per-site bit tests are
+    shifts of the word, flip masks are (C,) int64 tables XORed against the
+    batch.  Elements are float32, words int64 (``ops/bits.py``)."""
+    n = ham.n_sites
+    _spin_words(n)
+    dev = ham.device
+    shifts = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def spins_of(packed):
+        """(B, 1) int64 -> (B, n) float32 in {-1, +1}."""
+        bits = (packed[:, 0:1] >> shifts) & 1
+        return 2.0 * bits.to(torch.float32) - 1.0
+
+    def masks_for(groups):
+        """list of site tuples -> (C,) int64 XOR masks."""
+        return torch.tensor([int(_site_mask(g)[0]) for g in groups],
+                            dtype=torch.int64, device=dev)
+
+    flip_masks = masks_for([(i,) for i in range(n)])
+
+    if isinstance(ham, TransverseFieldIsing):
+        edges = torch.tensor(np.array(ham.edges, np.int64).reshape(-1, 2),
+                             device=dev)
+        V, hf = float(ham.V), float(ham.h)
+
+        def diagonal(packed):
+            s = spins_of(packed)
+            return -V * torch.sum(s[:, edges[:, 0]] * s[:, edges[:, 1]], -1)
+
+        def connections(packed):
+            conn = (packed[:, 0:1] ^ flip_masks[None, :])[..., None]
+            elems = torch.full((packed.shape[0], n), -hf,
+                               dtype=torch.float32, device=packed.device)
+            return conn, elems
+
+        return diagonal, connections
+
+    if isinstance(ham, HeisenbergHamiltonian):
+        Jz = float(ham.Jz)
+        Jxy4 = float((ham.Jx + ham.Jy) / 4.0)
+        hz = torch.tensor(ham.h_z, dtype=torch.float32, device=dev)
+        hx = torch.tensor(ham.h_x, dtype=torch.float32, device=dev)
+        has_x = ham._has_x_field
+        bonds_np = np.array(ham.bonds, np.int64).reshape(-1, 2)
+        bonds = torch.tensor(bonds_np, device=dev)
+        bond_masks = masks_for([tuple(b) for b in bonds_np])
+
+        def diagonal(packed):
+            s = spins_of(packed)
+            zz = Jz / 4.0 * torch.sum(s[:, bonds[:, 0]] * s[:, bonds[:, 1]],
+                                      -1)
+            return zz + torch.sum(s * (hz / 2.0)[None, :], -1)
+
+        def connections(packed):
+            word = packed[:, 0:1]
+            bi = (word >> bonds[None, :, 0]) & 1
+            bj = (word >> bonds[None, :, 1]) & 1
+            el_b = (bi != bj).to(torch.float32) * Jxy4
+            conn_b = word ^ bond_masks[None, :]
+            if has_x:
+                conn_x = word ^ flip_masks[None, :]
+                el_x = (hx / 2.0)[None, :].expand(packed.shape[0], n)
+                return (torch.cat([conn_b, conn_x], 1)[..., None],
+                        torch.cat([el_b, el_x], 1))
+            return conn_b[..., None], el_b
+
+        return diagonal, connections
+
+    raise TypeError(f"no device closures for {type(ham)}")

@@ -11,10 +11,14 @@ single device and single word per spin channel:
 * :func:`iterative_residual_expansion` — the loop with stagnation-based
   early stopping.
 
+* :meth:`SelectedCIExpander.pt2_correction` — the exact Epstein-Nesbet
+  dE2 of a variational state over every external determinant, which the
+  large-system records report beside E_var.
+
 The host scoring path is the JAX package's NumPy code, so host-scored
 trajectories are identical in both packages.  The device scoring block
-(:meth:`SelectedCIExpander._pt2_topk_device`) runs in torch on the
-Hamiltonian's device.
+(:meth:`SelectedCIExpander._pt2_topk_device`) and the device block of the
+exact correction run in torch on the Hamiltonian's device.
 """
 
 from __future__ import annotations
@@ -389,6 +393,18 @@ class SelectedCIExpander:
         scores = coupling ** 2 / denom
         return cand, scores
 
+    def rank_external_candidates(self, basis: np.ndarray
+                                 ) -> Tuple[np.ndarray, np.ndarray, float,
+                                            np.ndarray]:
+        """Diagonalize ``basis`` and PT2-rank its external candidates:
+        (candidates (M, W), scores (M,), variational energy, ground
+        coefficients).  The restricted-SKQD subspace builder
+        (``krylov/skqd.py``) calls it."""
+        basis = np.atleast_2d(np.asarray(basis, np.uint32))
+        e, coeffs = self._diagonalize(basis)
+        cand, scores = self._pt2_candidates(basis, coeffs, e)
+        return cand, scores, e, coeffs
+
     def expand_basis(self, basis: np.ndarray,
                      n_add: Optional[int] = None) -> Dict:
         """One expansion round with variational rejection; adds up to
@@ -425,11 +441,158 @@ class SelectedCIExpander:
                 "accepted": True, "pt2_correction": float(scores[top].sum())}
 
 
+    # ------------------------------------------------------------------
+    # Exact second-order correction of the converged variational state
+    # ------------------------------------------------------------------
+
+    def _pt2_correction_host(self, basis: np.ndarray, coeffs: np.ndarray,
+                             energy: float) -> Dict:
+        """The exact dE2 in vectorized f64 NumPy (the JAX package's host
+        closure): every connection of every basis row, grouped by key."""
+        h = self.h
+        conn, elems = h.connections_np(basis)
+        flat = conn.reshape(-1, conn.shape[-1])
+        contrib = (elems * coeffs[:, None]).reshape(-1)
+        uniq, first_idx, inverse = _sorted_unique(h.keys(flat),
+                                                  return_inverse=True)
+        coupling = np.bincount(inverse, weights=contrib, minlength=len(uniq))
+        bk = np.sort(h.keys(basis))
+        pos = np.clip(np.searchsorted(bk, uniq), 0, len(bk) - 1)
+        ext = (bk[pos] != uniq) & (coupling != 0.0)
+        diag = h.diagonal_np(flat[first_idx][ext])
+        de2 = float(np.sum(coupling[ext] ** 2 / (energy - diag)))
+        return {"de2": de2, "corrected_energy": energy + de2,
+                "n_external": int(ext.sum()), "exact": True}
+
+    def _pt2_correction_block(self, src: np.ndarray, src_c: np.ndarray,
+                              basis_keys: torch.Tensor, cap: int):
+        """One source block on the device: all connections, one int64 key
+        each, a stable sort, the signed coupling of every unique key, the
+        externals by ``searchsorted`` against the sorted basis keys, an
+        exact descending sort by coupling^2 and its top ``cap`` rows.
+        Returns (keys, couplings, scores, number of weighted externals).
+
+        The segment sum is ``torch.segment_reduce`` over the sorted runs:
+        one thread adds a run's terms in their sorted order, so two runs
+        give the same bits (an ``index_add_`` on CUDA adds with float
+        atomics in no fixed order)."""
+        h = self.h
+        dev = h.device
+        conn, elems = h.connections_device(to_device(src, dev))
+        coeff = torch.as_tensor(src_c, dtype=torch.float32, device=dev)
+        contrib = (elems * coeff[:, None]).reshape(-1)
+        key, order = torch.sort(h.keys_device(conn).reshape(-1), stable=True)
+        del conn, elems
+        contrib = contrib[order]
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        starts = torch.nonzero(first)[:, 0]
+        lengths = torch.diff(starts, append=starts.new_tensor([len(key)]))
+        coupling = torch.segment_reduce(contrib, "sum", lengths=lengths)
+        key = key[starts]
+        pos = torch.searchsorted(basis_keys, key).clamp_(
+            max=len(basis_keys) - 1)
+        score = torch.where(basis_keys[pos] != key, coupling * coupling,
+                            torch.zeros_like(coupling))
+        n_valid = int((score > 0).sum())
+        score, idx = torch.sort(score, descending=True, stable=True)
+        idx = idx[:cap]
+        return key[idx], coupling[idx], score[:cap], n_valid
+
+    def pt2_correction(self, basis: np.ndarray, coeffs: np.ndarray,
+                       energy: float, cap: int = 1 << 23,
+                       pad_to: int = 0) -> Dict:
+        """Exact Epstein-Nesbet dE2 = sum_k <k|H|Phi>^2 / (E_var - H_kk)
+        over all determinants k outside ``basis``: the quantity SHCI/HCI
+        report as E_var + dE2 when a Selected-CI expansion exhausts.  The
+        PT2 scoring only ranks candidates from significant sources; this
+        sums every external coupling from every source.
+
+        Device path: the basis goes through
+        :meth:`_pt2_correction_block` in source blocks of half the scoring
+        row budget (the block's second sort rides on the scoring
+        footprint); each block returns its top ``cap`` external rows by
+        coupling^2, per-block partial couplings of a key add up on the
+        host, and the sum finishes in f64 with the host diagonal.
+        ``exact`` is False only if a block had more than ``cap`` weighted
+        external rows: raise ``cap`` and rerun.  A row budget of 0
+        (``_pt2_row_cap``) takes the host f64 path.
+
+        ``pad_to`` pinned the JAX package's compiled block shape across a
+        growth loop; eager torch compiles nothing, so it is accepted and
+        ignored.  One device only: the JAX package's mesh-sharded blocks
+        belong to ROADMAP Queue 1, Multi-device."""
+        del pad_to
+        h = self.h
+        C = h.n_connections
+        basis = np.atleast_2d(np.asarray(basis, np.uint32))
+        coeffs = np.asarray(coeffs, np.float64)
+        S = len(basis)
+        if self._pt2_row_cap is None:
+            from ..utils.memory import MemoryBudget
+            self._pt2_row_cap = MemoryBudget.for_device(
+                h.device).pt2_score_rows(C)
+        if not self._pt2_row_cap:
+            return self._pt2_correction_host(basis, coeffs, energy)
+        if h.pack_words > 2 or (h.pack_words == 2
+                                and not hasattr(h, "tables")):
+            return self._pt2_correction_multiword(basis, coeffs, energy, cap)
+
+        S_blk = max(64, min(self._pt2_row_cap // 2,
+                            1 << (max(S, 1) - 1).bit_length()))
+        cap = int(min(cap, S_blk * C))
+        # unpadded: an exact searchsorted needs no sentinel
+        basis_keys = torch.sort(h.keys_device(
+            to_device(basis, h.device)))[0]
+
+        exact = True
+        key_parts, coup_parts = [], []
+        for i in range(0, S, S_blk):
+            key_s, coup_s, score_s, n_valid = self._pt2_correction_block(
+                basis[i:i + S_blk], coeffs[i:i + S_blk], basis_keys, cap)
+            exact = exact and n_valid <= cap
+            valid = score_s > 0.0
+            key_parts.append(h.keys_to_host(key_s[valid]))
+            coup_parts.append(coup_s[valid].double().cpu().numpy())
+
+        keys = np.concatenate(key_parts)
+        coupling = np.concatenate(coup_parts)
+        if len(key_parts) > 1 and len(keys):
+            # grouped sum of the per-block partial couplings (exact: a
+            # block gives at most one row per key)
+            order = np.argsort(keys, kind="stable")
+            keys, coupling = keys[order], coupling[order]
+            firsts = np.flatnonzero(np.concatenate(
+                [[True], keys[1:] != keys[:-1]]))
+            coupling = np.add.reduceat(coupling, firsts)
+            keys = keys[firsts]
+        diag = h.diagonal_np(h.unkey(keys))
+        de2 = float(np.sum(coupling ** 2 / (energy - diag)))
+        return {"de2": de2, "corrected_energy": energy + de2,
+                "n_external": int(len(keys)), "exact": exact}
+
+    def _pt2_correction_multiword(self, basis, coeffs, energy, cap) -> Dict:
+        raise NotImplementedError(
+            "exact dE2 over multiword configurations (more than 32 "
+            "orbitals or 31 sites) needs the two-word layout, not ported "
+            "yet (ROADMAP Queue 1, Multiword)")
+
+
 def iterative_residual_expansion(hamiltonian: Hamiltonian,
                                  initial_basis: np.ndarray,
                                  config: Optional[ResidualExpansionConfig] = None,
-                                 verbose: bool = False) -> Dict:
-    """Loop expansion rounds with stagnation-based early stopping."""
+                                 verbose: bool = False,
+                                 pt2_correct: bool = False,
+                                 pt2_cap: Optional[int] = None,
+                                 pt2_checkpoints: Optional[list] = None
+                                 ) -> Dict:
+    """Loop expansion rounds with stagnation-based early stopping.
+
+    ``pt2_correct`` adds the exact Epstein-Nesbet dE2 of the final state
+    (``pt2_de2``, ``pt2_corrected_energy``, ``pt2_n_external``,
+    ``pt2_exact``).  ``pt2_checkpoints``: ascending basis sizes at which
+    to also run it mid-trajectory and record (basis_size, e_var, de2,
+    exact), the raw points of the SHCI E-against-dE2 extrapolation."""
     cfg = config or ResidualExpansionConfig()
     basis = np.atleast_2d(np.asarray(initial_basis, np.uint32))
     # never let a large seed basis turn expansion into a no-op — but only
@@ -442,6 +605,25 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
     best_energy = np.inf
     best_basis = basis
     stall = 0
+    checkpoints = sorted(pt2_checkpoints or [])
+    checkpoint_rows = []
+
+    def maybe_checkpoint(b):
+        """Exact dE2 snapshots whenever the basis crosses a checkpoint."""
+        while checkpoints and len(b) >= checkpoints[0]:
+            target = checkpoints.pop(0)
+            e_c, c_c = expander._diagonalize(b)       # fingerprint-cached
+            corr = expander.pt2_correction(b, c_c, e_c,
+                                           cap=pt2_cap or (1 << 23))
+            row = {"basis_size": int(len(b)), "checkpoint": int(target),
+                   "e_var": float(e_c), "de2": float(corr["de2"]),
+                   "exact": bool(corr["exact"])}
+            checkpoint_rows.append(row)
+            if verbose:
+                print(f"  [pt2 checkpoint] basis={row['basis_size']} "
+                      f"E={row['e_var']:.8f} dE2={row['de2']:.6f} "
+                      f"exact={row['exact']}")
+
     for it in range(cfg.max_iterations):
         out = expander.expand_basis(basis)
         e = out["energy"]
@@ -458,7 +640,9 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
                   f"basis={len(basis)} added={out['n_added']} "
                   f"accepted={out['accepted']} "
                   f"[diag {t['diag']:.0f}s score {t['score']:.0f}s]")
-        if not out["accepted"]:
+        if out["accepted"]:
+            maybe_checkpoint(basis)
+        else:
             break
         if improvement < cfg.stagnation_threshold:
             stall += 1
@@ -471,5 +655,18 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
         print(f"  [sci timings] diag {t['diag']:.1f} s "
               f"(H-build {t['diag_build']:.1f} s), "
               f"pt2-score {t['score']:.1f} s")
-    return {"basis": best_basis, "energy": best_energy,
-            "energies": energies, "n_iterations": len(energies)}
+    res = {"basis": best_basis, "energy": best_energy,
+           "energies": energies, "n_iterations": len(energies)}
+    if checkpoint_rows:
+        res["pt2_checkpoints"] = checkpoint_rows
+    if pt2_correct:
+        # exact Epstein-Nesbet dE2 of the converged variational state (the
+        # final-basis diagonalization hits the fingerprint cache)
+        e_b, c_b = expander._diagonalize(best_basis)
+        corr = expander.pt2_correction(best_basis, c_b, e_b,
+                                       cap=pt2_cap or (1 << 23))
+        res.update(pt2_de2=corr["de2"],
+                   pt2_corrected_energy=corr["corrected_energy"],
+                   pt2_n_external=corr["n_external"],
+                   pt2_exact=corr["exact"])
+    return res

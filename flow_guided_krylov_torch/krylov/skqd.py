@@ -11,8 +11,17 @@ Counterpart of ``flow_guided_krylov_tpu/krylov/skqd.py`` for two paths:
   device by a second-order Trotter splitting over the Hamiltonian's Pauli
   words, all of them through the x_sweep kernel (a contiguous tile for
   the low-bit words, gathered tiles for the rest).  Smaller lattices,
-  and magnetization-conserving ones whose sector is small, evolve in an
-  enumerated subspace with the dense or scipy propagator.
+  and magnetization-conserving ones whose sector's ELL table fits the
+  device, evolve in an enumerated subspace with the dense, ELL or scipy
+  propagator;
+* any given set of packed states (``subspace_states=``): restricted SKQD,
+  the stage-4 route for molecules whose full space is beyond enumeration
+  (:func:`build_restricted_subspace`).
+
+Sector and restricted ELL tables are built on the device
+(:meth:`SampleBasedKrylovDiagonalization._build_ell_device`), and
+:meth:`SampleBasedKrylovDiagonalization.exact_subspace_energy` is the
+oracle of an enumerated subspace.
 
 :class:`SampleBasedKrylovDiagonalization` samples each Krylov state by
 inverse CDF and diagonalizes H on the cumulative sampled bases on the host
@@ -38,13 +47,14 @@ import torch
 
 from ..hamiltonians.base import Hamiltonian
 from ..hamiltonians.spin import extract_coeffs_and_paulis
-from ..ops.bits import _parity32
+from ..ops.bits import _parity32, to_device
 from ..ops.ell_spmv import ell_spmv
 from ..ops.x_sweep import TILE_BITS, _pauli_masks, make_gathered_sweeps
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
-           "lanczos_expm_ell", "supported_evolution_dim"]
+           "lanczos_expm_ell", "supported_evolution_dim",
+           "build_restricted_subspace"]
 
 
 class EvolutionBudgetError(RuntimeError):
@@ -62,6 +72,42 @@ def supported_evolution_dim(h: Hamiltonian) -> int:
     dense = min(budget.dense_hamiltonian_cap(), 20_000)
     ell = budget.connection_table_entries() // (h.n_connections + 1)
     return max(dense, int(ell))
+
+
+def build_restricted_subspace(h: Hamiltonian, basis: np.ndarray, cap: int,
+                              initial_state: Optional[np.ndarray] = None
+                              ) -> np.ndarray:
+    """Evolution subspace for restricted molecular SKQD: the given basis
+    plus its top PT2-ranked external candidates, at most ``cap`` states.
+
+    The propagator then acts within (basis + strongest externals), so time
+    evolution still moves amplitude into determinants the variational
+    stages missed, at any system size."""
+    from .residual_expansion import (ResidualExpansionConfig,
+                                     SelectedCIExpander)
+    basis = np.atleast_2d(np.asarray(basis, np.uint32))
+    cap = int(cap)
+    exp = SelectedCIExpander(h, ResidualExpansionConfig(max_basis_size=cap))
+    rows = []
+    if initial_state is not None:
+        rows.append(np.atleast_2d(np.asarray(initial_state, np.uint32)))
+    n_init = sum(len(r) for r in rows)
+    if len(basis) + n_init > cap:
+        # the basis alone overflows the propagator: keep its top-|c| rows
+        _, coeffs = exp._diagonalize(basis)
+        keep = np.argsort(-np.abs(coeffs))[:max(1, cap - n_init)]
+        rows.append(basis[np.sort(keep)])
+    else:
+        rows.append(basis)
+        room = cap - len(basis) - n_init
+        if room > 0:
+            cand, scores, _, _ = exp.rank_external_candidates(basis)
+            if len(cand):
+                top = cand[np.argsort(-scores)[:room]]
+                rows.append(np.asarray(top, np.uint32))
+    states = np.concatenate(rows, axis=0)
+    _, first = np.unique(h.keys(states), return_index=True)
+    return states[np.sort(first)]
 
 
 @dataclass
@@ -277,15 +323,20 @@ def _diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
 class SampleBasedKrylovDiagonalization:
     """Classical SKQD: in the particle-conserving subspace for molecules;
     in the magnetization sector, the full space, or (past
-    ``trotter_threshold`` sites) a Trotterized statevector for spins."""
+    ``trotter_threshold`` sites) a Trotterized statevector for spins; or
+    within the given ``subspace_states`` (restricted SKQD)."""
 
     def __init__(self, hamiltonian: Hamiltonian,
                  config: Optional[SKQDConfig] = None,
-                 initial_state: Optional[np.ndarray] = None):
+                 initial_state: Optional[np.ndarray] = None,
+                 subspace_states: Optional[np.ndarray] = None):
         self.h = hamiltonian
         self.config = config or SKQDConfig()
         self.device = hamiltonian.device
         self.is_molecular = hasattr(hamiltonian, "n_alpha")
+        # an explicit evolution subspace (restricted SKQD): evolve within
+        # the given packed states, not the enumerated full space
+        self.restricted = subspace_states is not None
         # initial state: HF for molecules, Neel for spins
         if initial_state is None:
             if self.is_molecular:
@@ -327,12 +378,17 @@ class SampleBasedKrylovDiagonalization:
             or (c.evolution == "auto" and n_sites > c.trotter_threshold
                 and not sector_small))
 
+        if self.restricted:
+            self.use_trotter = False
         if self.use_trotter:
             self.subspace = None
             self.dim = 1 << n_sites
             self._keys = self._order = self._sorted_keys = None
         else:
-            if self.is_molecular:
+            if self.restricted:
+                self.subspace = np.atleast_2d(
+                    np.asarray(subspace_states, np.uint32))
+            elif self.is_molecular:
                 self.subspace = hamiltonian.enumerate_basis()  # (N, 2)
             elif self._sector_n_up is not None:
                 self.subspace = _sector_states(
@@ -382,8 +438,12 @@ class SampleBasedKrylovDiagonalization:
 
     def _dense_evolution_cap(self) -> int:
         """Max subspace dim for the dense device propagator.  The 20,000
-        row ceiling is the JAX package's dense/ELL crossover, measured on
-        a TPU; it has not been measured on a GPU."""
+        row ceiling is the JAX package's dense/ELL crossover.  On an H100
+        no single row count separates the two: a warm 30-step evolve is
+        launch-bound either way (14-52 ms), dense ahead at 5,000-10,000
+        rows of 2,835 connections, ELL ahead at 14,400 rows of 609 and,
+        twofold, at 30,513 rows of 2,835 (``chip_smoke.py``), so the
+        ceiling stays."""
         from ..utils.memory import MemoryBudget
         return min(MemoryBudget.for_device(self.device)
                    .dense_hamiltonian_cap(), 20_000)
@@ -473,22 +533,77 @@ class SampleBasedKrylovDiagonalization:
                                     min(self.config.lanczos_dim, self.dim))
         return out_r.cpu().numpy() + 1j * out_i.cpu().numpy()
 
+    def _build_ell_device(self, states: np.ndarray,
+                          chunk: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """(diag (N,), elems_t (C, N), tgt_t (C, N)) of H restricted to
+        the packed ``states``, built on the device: only the states cross
+        the host link.  A connection's target is found by ``searchsorted``
+        over the states' sorted int64 keys (``Hamiltonian.keys_device``,
+        which orders like the host ``keys``); a connection that leaves the
+        set gets element 0 and target 0.  Works for any state set: a
+        conserved sector, a sampled Krylov basis, a PT2-ranked restricted
+        molecular subspace.
+
+        ``chunk`` rows are worked at a time (sized from the memory budget
+        and C when None) and written, transposed, into column slices of
+        the preallocated (C, N) tables: the finished tables are the only
+        table-sized allocation."""
+        from ..utils.memory import MemoryBudget
+        states = np.atleast_2d(np.asarray(states, np.uint32))
+        dim = len(states)
+        if dim > 2 ** 31 - 1:
+            raise ValueError(f"{dim} rows do not fit the tables' int32 "
+                             "target indices")
+        C = self.h.n_connections
+        dev = self.device
+        if chunk is None:
+            chunk = MemoryBudget.for_device(dev).build_chunk_rows(C)
+        sorted_keys, order = torch.sort(
+            self.h.keys_device(to_device(states, dev)))
+        order = order.to(torch.int32)
+        conn_fn = self.h.connections_device
+        diag = torch.empty(dim, dtype=torch.float32, device=dev)
+        elems = torch.empty((C, dim), dtype=torch.float32, device=dev)
+        tgt = torch.empty((C, dim), dtype=torch.int32, device=dev)
+        for start in range(0, dim, chunk):
+            rows = to_device(states[start:start + chunk], dev)
+            stop = start + rows.shape[0]
+            conn, el = conn_fn(rows)                    # (M, C, W), (M, C)
+            keys = self.h.keys_device(conn)
+            del conn
+            pos = torch.searchsorted(sorted_keys, keys).clamp_(max=dim - 1)
+            hit = sorted_keys[pos] == keys
+            del keys
+            tgt[:, start:stop] = torch.where(hit, order[pos], 0).T
+            elems[:, start:stop] = torch.where(hit, el, 0.0).T
+            diag[start:stop] = self.h.diagonal_device(rows)
+        return diag, elems, tgt
+
     def _ell_structure(self):
         """ELL (diag, elems_t, target_idx_t) on the device, tables in the
-        (C, N) layout of ``ops/ell_spmv.py``, built from the full-space
-        connection table."""
+        (C, N) layout of ``ops/ell_spmv.py``: from the full-space
+        connection table for an unrestricted molecule, else built on the
+        device for the subspace's states (:meth:`_build_ell_device`).
+
+        The JAX package also kept a host build for Hamiltonians without
+        device connections or without a 32-bit key; here every Hamiltonian
+        has ``connections_device`` and an int64 key, so that route has no
+        counterpart."""
         if self._ell is None:
-            from ..utils.connection_table import build_connection_table
-            from ..utils.memory import MemoryBudget
-            budget = MemoryBudget.for_device(self.device)
-            t = build_connection_table(
-                self.h, max_entries=budget.connection_table_entries())
-            if t is None:
+            if not self._ell_fits_memory():
                 raise EvolutionBudgetError(
                     f"ELL table of {self.dim} x {self.h.n_connections} "
                     f"entries exceeds the memory budget")
-            self._ell = (t.diag, t.elems.T.contiguous(),
-                         t.target_idx.T.contiguous())
+            if self.is_molecular and not self.restricted:
+                from ..utils.connection_table import build_connection_table
+                t = build_connection_table(
+                    self.h, max_entries=self.dim * self.h.n_connections)
+                self._ell = (t.diag, t.elems.T.contiguous(),
+                             t.target_idx.T.contiguous())
+            else:
+                self._ell = self._build_ell_device(self.subspace)
         return self._ell
 
     def _evolve_device_ell(self, psi: np.ndarray) -> np.ndarray:
@@ -524,12 +639,6 @@ class SampleBasedKrylovDiagonalization:
                     f"nor the ELL propagator on {self.device}; set "
                     f"evolution='scipy' to evolve on the host")
         if mode == "ell":
-            if not self.is_molecular:
-                raise NotImplementedError(
-                    "ELL evolution of a spin subspace needs the device "
-                    "table build (_build_ell_device), which comes with the "
-                    "restricted-SKQD slice (ROADMAP Queue 1 item 1); use "
-                    "evolution='dense' or 'scipy'")
             return self._evolve_device_ell(psi)
         if mode == "dense":
             return self._evolve_device(psi)
@@ -605,28 +714,47 @@ class SampleBasedKrylovDiagonalization:
     # Projected eigensolve with stability guardrails
     # ------------------------------------------------------------------
 
-    def compute_ground_state_energy(self, basis: np.ndarray) -> float:
+    # sampled spin bases above this many states seed the host eigsh with
+    # a device ELL Lanczos vector
+    SEEDED_EIGSH_MIN_ROWS = 200_000
+
+    def compute_ground_state_energy(self, basis: np.ndarray,
+                                    return_vector: bool = False):
         """Project H on ``basis`` and diagonalize (host f64): Hermitize,
         regularize, condition check -> SVD fallback, dense/sparse routing.
+        With ``return_vector`` returns (energy, ground vector).
 
-        The JAX package seeds ``eigsh`` for sampled spin bases above 200k
-        states with a device ELL Lanczos vector; that seed comes with the
-        device eigensolvers (ROADMAP Queue 1 item 3).  The unseeded solve
-        reaches the same energy."""
+        For sampled spin bases above ``SEEDED_EIGSH_MIN_ROWS`` states a
+        float32 device ELL Lanczos (through the ELL kernel on a card)
+        gets the ground vector to ~1e-4, and ``eigsh`` starts from it."""
         basis = np.atleast_2d(np.asarray(basis, np.uint32))
         nb = len(basis)
         reg = self.config.regularization
 
         if nb > 2048:
+            v0 = None
+            if nb > self.SEEDED_EIGSH_MIN_ROWS and not self.is_molecular:
+                from ..postprocessing.eigensolver import \
+                    lanczos_ground_state_ell
+                from ..utils.memory import MemoryBudget
+                ell = self._build_ell_device(basis)
+                m_fit = MemoryBudget.for_device(self.device).lanczos_ell_m(
+                    nb, self.h.n_connections, m_max=80)
+                _, v = lanczos_ground_state_ell(*ell, m=min(m_fit, nb))
+                v0 = v.double().cpu().numpy()
+                del ell, v
             M = self.h.to_sparse(basis)
             M = (M + M.T) * 0.5 + reg * sp.eye(nb)
             k = min(self.config.num_eigenvalues, nb - 1)
             try:
-                vals = spla.eigsh(M, k=max(k, 1), which="SA",
-                                  return_eigenvectors=False)
+                vals, vecs = spla.eigsh(M, k=max(k, 1), which="SA", v0=v0)
             except spla.ArpackNoConvergence:
-                vals = np.linalg.eigvalsh(M.toarray())
-            return float(vals.min() - reg)
+                vals, vecs = np.linalg.eigh(M.toarray())
+            idx = np.argsort(vals)
+            e = float(vals[idx][0] - reg)
+            if return_vector:
+                return e, vecs[:, idx][:, 0]
+            return e
 
         H = self.h.matrix_elements(basis, basis)
         H = 0.5 * (H + H.T) + reg * np.eye(nb)
@@ -637,7 +765,84 @@ class SampleBasedKrylovDiagonalization:
             s = np.maximum(s, 1e-10)
             H = u @ np.diag(s) @ vt
             H = 0.5 * (H + H.T)
-        return float(np.linalg.eigvalsh(H)[0] - reg)
+        vals, vecs = np.linalg.eigh(H)
+        e = float(vals[0] - reg)
+        if return_vector:
+            return e, vecs[:, 0]
+        return e
+
+    # ------------------------------------------------------------------
+    # The oracle of an enumerated subspace
+    # ------------------------------------------------------------------
+
+    def _oracle_cache_path(self):
+        """Disk-cache location of the subspace-oracle energy, keyed by the
+        Hamiltonian content and the subspace size (the JAX package's hash
+        and ``FGK_INTEGRAL_CACHE`` override).  The host refine of a
+        million-state sector takes many minutes; the oracle is
+        instrumentation, so the cache only saves repeated runs."""
+        import hashlib
+        import os
+        from pathlib import Path
+        h = self.h
+        hsh = hashlib.sha1()
+        hsh.update(type(h).__name__.encode())
+        for attr in ("n_sites", "Jx", "Jy", "Jz", "V", "h", "L", "periodic"):
+            hsh.update(repr(getattr(h, attr, None)).encode())
+        for attr in ("h_x", "h_y", "h_z"):
+            v = getattr(h, attr, None)
+            if v is not None:
+                hsh.update(np.asarray(v, np.float64).tobytes())
+        hsh.update(bytes(memoryview(np.int64([self.dim]))))
+        root = Path(os.environ.get(
+            "FGK_INTEGRAL_CACHE",
+            Path.home() / ".cache" / "fgk_tpu_integrals"))
+        return root / f"sector_{hsh.hexdigest()}.txt"
+
+    def exact_subspace_energy(self, m: int = 120, refine_host: bool = True,
+                              tol: float = 1e-9) -> float:
+        """Exact ground-state energy of the whole enumerated subspace.
+
+        A float32 device ELL Lanczos with full reorthogonalization (the
+        ELL kernel at B = 1 on a card) finds the subspace ground state;
+        a host f64 ``eigsh`` seeded with that vector then refines it to
+        oracle grade.  For molecules this equals ``fci_energy``; its use
+        is the spin sectors (Heisenberg-24: 2,704,156 states), which have
+        no other oracle.  ``refine_host=False`` returns the device energy.
+        A device failure raises: the host refine never runs unseeded.
+        """
+        if self.subspace is None:
+            raise RuntimeError(
+                "Trotter mode has no enumerated subspace; the exact energy "
+                "of the full 2^n space is out of reach by construction")
+        path = self._oracle_cache_path()
+        if refine_host:
+            try:
+                return float(path.read_text())
+            except (OSError, ValueError):
+                pass
+        from ..postprocessing.eigensolver import lanczos_ground_state_ell
+        from ..utils.memory import MemoryBudget
+        ell = self._ell_structure()
+        m_fit = MemoryBudget.for_device(self.device).lanczos_ell_m(
+            ell[0].shape[0], ell[1].shape[0], m_max=m)
+        # a block capped by memory recovers its depth through restarts
+        n_restart = max(1, -(-m // m_fit))
+        e_dev, v = lanczos_ground_state_ell(
+            *ell, m=min(m_fit, self.dim), restarts=n_restart)
+        if not refine_host:
+            return e_dev
+        H = self.subspace_hamiltonian
+        H = (H + H.T) * 0.5
+        vals = spla.eigsh(H, k=1, which="SA", v0=v.double().cpu().numpy(),
+                          tol=tol, return_eigenvectors=False)
+        e = float(vals.min())
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(repr(e))
+        except OSError:
+            pass
+        return e
 
     def run(self, final_only: bool = False) -> Dict:
         """Energies against Krylov dimension on the cumulative bases.
@@ -664,8 +869,10 @@ class FlowGuidedSKQD(SampleBasedKrylovDiagonalization):
 
     def __init__(self, hamiltonian: Hamiltonian, nf_basis: np.ndarray,
                  config: Optional[SKQDConfig] = None,
-                 initial_state: Optional[np.ndarray] = None):
-        super().__init__(hamiltonian, config, initial_state)
+                 initial_state: Optional[np.ndarray] = None,
+                 subspace_states: Optional[np.ndarray] = None):
+        super().__init__(hamiltonian, config, initial_state,
+                         subspace_states=subspace_states)
         self.nf_basis = np.atleast_2d(np.asarray(nf_basis, np.uint32))
 
     def get_combined_basis(self, krylov_basis: np.ndarray) -> np.ndarray:
@@ -678,11 +885,14 @@ class FlowGuidedSKQD(SampleBasedKrylovDiagonalization):
     # diagonalized (each per-k solve is a fresh CSR build + ARPACK)
     FINAL_ONLY_NF_ROWS = 100_000
 
-    def run_with_nf(self) -> Dict:
+    def run_with_nf(self, final_only: Optional[bool] = None) -> Dict:
         """Per-k Krylov-only vs combined energies with variational
-        monotonicity checks and best-stable tracking."""
+        monotonicity checks and best-stable tracking.  ``final_only``
+        (by default above ``FINAL_ONLY_NF_ROWS`` NF rows) skips the
+        per-k eigensolves before the last."""
         c = self.config
-        final_only = len(self.nf_basis) > self.FINAL_ONLY_NF_ROWS
+        if final_only is None:
+            final_only = len(self.nf_basis) > self.FINAL_ONLY_NF_ROWS
         nf_energy = self.compute_ground_state_energy(self.nf_basis)
 
         samples = self.generate_krylov_samples()

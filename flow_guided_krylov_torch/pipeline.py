@@ -33,7 +33,8 @@ from .flows.physics_guided_training import (PhysicsGuidedConfig,
 from .hamiltonians.molecular import MOLECULE_FACTORIES, MolecularHamiltonian
 from .krylov.residual_expansion import (ResidualExpansionConfig,
                                         SelectedCIExpander)
-from .krylov.skqd import FlowGuidedSKQD, SKQDConfig, supported_evolution_dim
+from .krylov.skqd import (FlowGuidedSKQD, SKQDConfig,
+                          build_restricted_subspace, supported_evolution_dim)
 from .models.dense import DenseNQS
 from .ops.bits import unpack_np
 from .postprocessing.diversity_selection import (DiversityConfig,
@@ -205,25 +206,25 @@ class FlowGuidedKrylovPipeline:
             raise NotImplementedError(
                 "spin Hamiltonians need SzConservingFlow, "
                 "DiscreteFlowSampler and SpinFlowTrainer, not ported yet "
-                f"({_ROADMAP} item 4, spin systems)")
+                f"({_ROADMAP} item 1, spin systems)")
         if not c.use_particle_conserving_flow:
             raise NotImplementedError(
                 "use_particle_conserving_flow=False needs "
                 "DiscreteFlowSampler, not ported yet "
-                f"({_ROADMAP} item 4, spin systems)")
+                f"({_ROADMAP} item 1, spin systems)")
         if not c.use_local_energy:
             raise NotImplementedError(
                 "use_local_energy=False needs the subspace-energy trainer "
-                f"FlowNQSTrainer, not ported yet ({_ROADMAP} item 7, "
+                f"FlowNQSTrainer, not ported yet ({_ROADMAP} item 4, "
                 "the rest: flows/training.py)")
         if c.checkpoint_dir:
             raise NotImplementedError(
                 "checkpoint_dir needs utils/checkpoint.py, not ported yet "
-                f"({_ROADMAP} item 7, the rest: checkpointing)")
+                f"({_ROADMAP} item 4, the rest: checkpointing)")
         if c.n_devices is not None and c.n_devices > 1:
             raise NotImplementedError(
                 "n_devices > 1 needs the mesh code, not ported yet "
-                f"({_ROADMAP} item 6, multi-device)")
+                f"({_ROADMAP} item 3, multi-device)")
 
         self.device = hamiltonian.device
         self.n_valid = hamiltonian.n_valid_configs
@@ -419,6 +420,9 @@ class FlowGuidedKrylovPipeline:
     # Stage 4
     # ------------------------------------------------------------------
 
+    def _supported_evolution_dim(self) -> int:
+        return supported_evolution_dim(self.h)
+
     def run_skqd(self) -> Dict:
         c = self.config
         if c.verbose:
@@ -428,19 +432,31 @@ class FlowGuidedKrylovPipeline:
         residual_basis = stage3["basis"] if stage3 else self.nf_basis
 
         skip_reason = None
+        restricted_states = None
         if c.skip_skqd:
             skip_reason = "config.skip_skqd"
         elif c.max_krylov_dim <= 0:
             skip_reason = "max_krylov_dim <= 0"
-        elif self.n_valid > max(200_000, supported_evolution_dim(self.h)):
-            # full-space evolution is out of reach: the JAX package then
-            # evolves in a restricted subspace (the stage-3 basis plus the
-            # strongest PT2-ranked externals)
-            raise NotImplementedError(
-                f"{self.n_valid:,} determinants exceed the full-space "
-                "propagator; restricted-subspace SKQD needs "
-                "build_restricted_subspace, not ported yet "
-                f"({_ROADMAP} item 1, restricted SKQD)")
+        elif self.n_valid > max(200_000, self._supported_evolution_dim()):
+            # Full-space evolution is out of reach: evolve within a
+            # restricted subspace, the stage-3 basis plus the strongest
+            # PT2-ranked externals, sized to what the routed propagator
+            # supports (dense rows or the ELL table).  Sampling the evolved
+            # state still finds determinants the variational stages missed.
+            cap = self._supported_evolution_dim()
+            min_room = max(64, len(residual_basis) // 10)
+            if cap < len(residual_basis) + min_room:
+                skip_reason = (f"propagator cap {cap:,} leaves no room "
+                               f"beyond the {len(residual_basis):,}-config "
+                               f"stage-3 basis")
+            else:
+                restricted_states = build_restricted_subspace(
+                    self.h, residual_basis, cap,
+                    initial_state=self.hf_state)
+                if c.verbose:
+                    print(f"  restricted evolution subspace: "
+                          f"{len(restricted_states):,} states "
+                          f"(full space {self.n_valid:,})")
         elif (self.exact_energy is not None and residual_energy is not None
               and residual_energy - self.exact_energy < 1.0 * MHA):
             skip_reason = "residual already < 1 mHa"
@@ -474,7 +490,8 @@ class FlowGuidedKrylovPipeline:
                        regularization=c.skqd_regularization,
                        seed=c.seed,
                        verbose=c.verbose),
-            initial_state=self.hf_state)
+            initial_state=self.hf_state,
+            subspace_states=restricted_states)
         out = skqd.run_with_nf()
 
         skqd_energy = out["best_stable_energy"]
@@ -496,6 +513,8 @@ class FlowGuidedKrylovPipeline:
             "skqd_energy": float(skqd_energy),
             "final_energy": float(final),
         }
+        if restricted_states is not None:
+            self.results["stage4"]["restricted_dim"] = len(restricted_states)
         if c.verbose and self.exact_energy is not None:
             print(f"  SKQD E={skqd_energy:.6f} "
                   f"err={1000 * (skqd_energy - self.exact_energy):+.3f} mHa")
@@ -507,7 +526,7 @@ class FlowGuidedKrylovPipeline:
         if resume:
             raise NotImplementedError(
                 "resume needs utils/checkpoint.py, not ported yet "
-                f"({_ROADMAP} item 7, the rest: checkpointing)")
+                f"({_ROADMAP} item 4, the rest: checkpointing)")
         t0 = time.perf_counter()
         with self.timer.span("stage1_train"):
             self.train_flow_nqs()

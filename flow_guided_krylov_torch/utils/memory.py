@@ -74,3 +74,48 @@ class MemoryBudget:
         entries = self.total_bytes * 0.40 / 48
         rows = int(max(64, entries / max(n_connections, 1)))
         return 1 << (rows.bit_length() - 1)
+
+    def lanczos_ell_m(self, n_states: int, n_connections: int,
+                      m_max: int = 120) -> int:
+        """Max Lanczos depth of the fully reorthogonalized device ELL
+        eigensolver (``postprocessing/eigensolver.py``): the (m, N) float32
+        Krylov block is the largest allocation beside the two (C, N)
+        tables (float32 + int32, 8 B an entry) and a few N-vector
+        temporaries.  The block gets 40% of memory less the tables and
+        eight N-vectors.
+
+        The JAX package also padded the tables by 1.3 (TPU sublanes),
+        clamped the block to 1 GB and floored the depth at 4, all three
+        for limits of its TPU worker.  Here the tables are counted at
+        their size, the block is bounded by the 40% rule alone, and the
+        floor is 2, the shortest recurrence that can improve a start
+        vector; depth past the block comes from restarts."""
+        tables = 2 * n_connections * n_states * 4
+        scratch = 8 * n_states * 4
+        block = self.total_bytes * 0.40 - tables - scratch
+        m = int(block / (max(n_states, 1) * 4))
+        return max(2, min(m_max, m))
+
+    # a chunk's connection holds int64 words, key and search position, the
+    # float32 element, the int32 target and their transposed copies live
+    # at once; counted generously
+    BUILD_BYTES_PER_ENTRY = 96
+    BUILD_MAX_ROWS = 1 << 19
+
+    def build_chunk_rows(self, n_connections: int) -> int:
+        """Rows per chunk of a device ELL table build
+        (``krylov/skqd.py::_build_ell_device``): a chunk keeps
+        rows * n_connections connections of ``BUILD_BYTES_PER_ENTRY`` bytes
+        live.  Budget: 10% of memory, beside the finished (C, N) tables; at
+        most ``BUILD_MAX_ROWS``, at least 64."""
+        rows = self.total_bytes * 0.10 / (self.BUILD_BYTES_PER_ENTRY
+                                          * max(n_connections, 1))
+        return int(max(64, min(self.BUILD_MAX_ROWS, rows)))
+
+    def statevector_sites_cap(self) -> int:
+        """Max spin count for the full 2^n statevector Trotter propagator:
+        a substep keeps about 4 (re, im) float32 vector pairs live, so
+        2^n * 8 * 4 <= 50% of memory; between 16 and 28 sites."""
+        import math
+        n = math.log2(max(self.total_bytes * 0.50 / 32, 2))
+        return int(max(16, min(28, n)))

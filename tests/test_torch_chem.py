@@ -47,6 +47,28 @@ def test_integrals_bit_equal_to_jax_package(name, tmp_path):
                                       getattr(mine, field), err_msg=field)
 
 
+def test_active_space_bit_equal_to_jax_package(tmp_path):
+    """Frozen-core folding on N2/STO-3G (two frozen 1s cores, as the
+    cc-pVDZ (10e, 14o) space freezes them; cc-pVDZ integrals themselves
+    take too long for this suite): every field bit for bit, with and
+    without a window narrower than the remaining orbitals."""
+    from flow_guided_krylov_tpu.chem.active_space import \
+        compute_active_space_integrals as jax_active
+    from flow_guided_krylov_torch.chem import compute_active_space_integrals
+    geom = [("N", (0.0, 0.0, 0.0)), ("N", (0.0, 0.0, 1.10))]
+    ints = compute_molecular_integrals(geom, cache_dir=str(tmp_path))
+    for n_active in (None, 6):
+        mine = compute_active_space_integrals(ints, 2, n_active)
+        ref = jax_active(jax_mi(geom, cache_dir=str(tmp_path)), 2, n_active)
+        for field in FIELDS + ("n_electrons", "n_orbitals", "hf_energy",
+                               "mo_energies"):
+            np.testing.assert_array_equal(getattr(mine, field),
+                                          getattr(ref, field), err_msg=field)
+        assert mine.n_orbitals == (n_active or 8) and mine.n_alpha == 5
+    with pytest.raises(ValueError):
+        compute_active_space_integrals(ints, 2, 9)
+
+
 def test_cache_override_from_environment(tmp_path, monkeypatch):
     monkeypatch.setenv("FGK_INTEGRAL_CACHE", str(tmp_path))
     compute_molecular_integrals(GEOMETRIES["h2"])

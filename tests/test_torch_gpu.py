@@ -364,3 +364,144 @@ def test_pipeline_on_card(lih_cuda):
     out = pipe.run()
     assert pipe.trainer._acc_keys.is_cuda
     assert abs(out["error_mha"]) < 1.6 and out["nf_basis_size"] == 225
+
+
+# ---------------------------------------------------------------------------
+# Sector and restricted tables, the device eigensolvers and the exact dE2
+# ---------------------------------------------------------------------------
+
+def _sector_skqd(n, device, **cfg):
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    h = HeisenbergHamiltonian(n, 1.0, 1.0, 1.0,
+                              h_z=np.array([0.1] + [0.0] * (n - 1)),
+                              device=device)
+    neel = np.array([sum(1 << i for i in range(0, n, 2))], np.uint32)
+    return krylov.SampleBasedKrylovDiagonalization(
+        h, krylov.SKQDConfig(**cfg), initial_state=neel)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_ell_kernel_on_a_sector_table_one_segment_through_l2(card, b):
+    """The Heisenberg-22 sector (705,432 x 21): past 2^18 rows a row is
+    one segment, and psi is far past shared memory, so each lane gathers
+    through L2.  Same order as the plain version: 0.0."""
+    s = _sector_skqd(22, card)
+    diag, el_t, tgt_t = s._ell_structure()
+    c, n = el_t.shape
+    assert ell.ell_segments(n, c) == 1 and not ell.psi_fits_on_chip(n, b)
+    gen = torch.Generator(device=card).manual_seed(b)
+    psi = torch.randn(b, n, generator=gen, device=card)
+    want = ell.ell_spmv_reference(diag, el_t, tgt_t, psi)
+    got = ell.ell_spmv(diag, el_t, tgt_t, psi)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) == 0.0
+
+
+def test_ell_kernel_on_a_wide_synthetic_table(card):
+    """20,000 rows of 2,835 random connections, the row degree of
+    N2/cc-pVDZ (10e, 14o): 0.0 against the plain version on both routes
+    of B = 1 and through L2 at B = 2."""
+    n, c = 20_000, 2835
+    gen = torch.Generator(device=card).manual_seed(9)
+    diag = torch.randn(n, generator=gen, device=card)
+    el_t = torch.randn(c, n, generator=gen, device=card)
+    tgt_t = torch.randint(0, n, (c, n), generator=gen, device=card,
+                          dtype=torch.int32)
+    for b, routes in ((1, (True, False)), (2, (True, False))):
+        psi = torch.randn(b, n, generator=gen, device=card)
+        want = ell.ell_spmv_reference(diag, el_t, tgt_t, psi)
+        for on_chip in routes:
+            got = ell.ell_spmv_cuda(diag, el_t, tgt_t, psi,
+                                    psi_on_chip=on_chip)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) == 0.0
+
+
+def test_build_ell_device_on_card_matches_cpu(card, lih_cuda):
+    """Sector and restricted tables built on the card against the CPU's:
+    targets equal, float32 elements and diagonals to 1e-6."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.krylov.skqd import \
+        build_restricted_subspace
+    pairs = [(_sector_skqd(12, card), _sector_skqd(12, "cpu"))]
+    cpu = create_lih_hamiltonian("cpu")
+    sci = krylov.iterative_residual_expansion(
+        cpu, cpu.get_hf_state()[None, :],
+        krylov.ResidualExpansionConfig(configs_per_iteration=6,
+                                       max_iterations=2))
+    states = build_restricted_subspace(cpu, sci["basis"], 100,
+                                       initial_state=cpu.get_hf_state())
+    pairs.append(tuple(krylov.FlowGuidedSKQD(
+        h, sci["basis"], krylov.SKQDConfig(), subspace_states=states)
+        for h in (lih_cuda, cpu)))
+    for on_card, on_cpu in pairs:
+        got = on_card._build_ell_device(on_card.subspace, chunk=37)
+        want = on_cpu._build_ell_device(on_cpu.subspace)
+        assert all(t.is_cuda and t.is_contiguous() for t in got)
+        assert torch.equal(got[2].cpu(), want[2])
+        for a, b in zip(got[:2], want[:2]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-6
+
+
+def test_sector_skqd_and_oracle_on_card(card):
+    """Heisenberg-16 sector SKQD through ``auto`` (dense at 12,870
+    states) and ``ell``, and the device oracle against the host's."""
+    s = _sector_skqd(16, card, evolution="ell", max_krylov_dim=4,
+                     shots_per_krylov=20_000, lanczos_dim=12)
+    before = ell.ell_spmv_cuda.launches
+    out = s.run(final_only=True)
+    assert ell.ell_spmv_cuda.launches == before + 3 * 12
+    exact = float(s.h.exact_ground_state(s.subspace, k=1)[0][0])
+    before = ell.ell_spmv_cuda.launches
+    e_dev = s.exact_subspace_energy(refine_host=False)
+    assert ell.ell_spmv_cuda.launches > before
+    assert abs(e_dev - exact) < 1e-4
+    assert exact - 1e-6 <= out["final_energy"] < -3.7
+
+
+def test_fullspace_ground_state_on_card(card, monkeypatch):
+    """Both routes of the full 2^16 space, each chosen by the memory the
+    budget reports: the card's own (tables fit), then 64 MiB (only the
+    table-free flips fit)."""
+    from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_torch.postprocessing.eigensolver import \
+        exact_fullspace_ground_state
+    from flow_guided_krylov_torch.utils import memory
+    n = 16
+    ham = TransverseFieldIsing(n, V=1.0, h=1.0, device=card)
+    k = (2 * np.arange(n) + 1) * np.pi / n
+    exact = float(-np.sum(np.sqrt(2.0 - 2.0 * np.cos(k))))
+    for route in ("ell-fused", "flip-stepped"):
+        if route == "flip-stepped":
+            monkeypatch.setattr(memory, "device_memory_bytes",
+                                lambda device: 64 << 20)
+        before = ell.ell_spmv_cuda.launches
+        out = exact_fullspace_ground_state(ham, refine_host=False,
+                                           use_cache=False, verbose=False)
+        assert out["route"] == route
+        assert abs(out["energy"] - exact) < 1e-4
+        assert (ell.ell_spmv_cuda.launches > before) == (route
+                                                         == "ell-fused")
+
+
+def test_pt2_correction_on_card_is_reproducible(lih_cuda):
+    """Two device dE2 runs agree bit for bit (no float atomics) and with
+    the host closure to 1e-6 Ha."""
+    from flow_guided_krylov_torch import krylov
+    h = lih_cuda
+    sci = krylov.iterative_residual_expansion(
+        h, h.get_hf_state()[None, :],
+        krylov.ResidualExpansionConfig(configs_per_iteration=8,
+                                       max_iterations=2, max_basis_size=20))
+    vals, vecs = h.exact_ground_state(sci["basis"], k=1)
+    e, coeffs = float(vals[0]), vecs[:, 0]
+    exp = krylov.SelectedCIExpander(h)
+    a = exp.pt2_correction(sci["basis"], coeffs, e)
+    b = exp.pt2_correction(sci["basis"], coeffs, e)
+    assert a == b and a["exact"]
+    host = exp._pt2_correction_host(sci["basis"], coeffs, e)
+    assert abs(a["de2"] - host["de2"]) < 1e-6
+    blk = krylov.SelectedCIExpander(h)
+    blk._pt2_row_cap = 16                     # blocks of 64 rows stay one
+    assert blk.pt2_correction(sci["basis"], coeffs, e) == a

@@ -162,14 +162,19 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="resume"):
         ppipe.FlowGuidedKrylovPipeline(
             h, ppipe.PipelineConfig(verbose=False)).run(resume=True)
-    # a 14-orbital (7a, 7b) space, 11.8M determinants: stage 4 would need
-    # the restricted subspace
+    # a 14-orbital (7a, 7b) space, 11.8M determinants: stage 4 no longer
+    # raises but evolves in the restricted subspace (here capped at 300
+    # states; HF is both the start and the basis and counts once: 299)
     big = pmol.MolecularHamiltonian(pmol.synthetic_integrals(14, 7, 7),
                                     device="cpu")
     pipe = ppipe.FlowGuidedKrylovPipeline(
-        big, ppipe.PipelineConfig(verbose=False))
+        big, ppipe.PipelineConfig(verbose=False, max_krylov_dim=3,
+                                  shots_per_krylov=5000))
+    pipe._supported_evolution_dim = lambda: 300
     hf = big.get_hf_state()[None, :]
+    e_hf = float(big.diagonal_np(hf)[0])
     pipe.nf_basis = hf
-    pipe.results["stage3"] = {"energy": 0.0, "basis": hf}
-    with pytest.raises(NotImplementedError, match="restricted"):
-        pipe.run_skqd()
+    pipe.results["stage3"] = {"energy": e_hf, "basis": hf}
+    out = pipe.run_skqd()
+    assert not out["skipped"] and out["restricted_dim"] == 299
+    assert out["final_energy"] < e_hf

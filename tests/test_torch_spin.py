@@ -157,9 +157,9 @@ def test_circuit_sampler_matches_jax():
 
 
 def test_spin_subspace_routes():
-    """Small spin systems evolve in an enumerated subspace: dense and
-    scipy agree, and ELL (whose device table build is not ported) raises
-    a named error."""
+    """Small spin systems evolve in an enumerated subspace: the dense
+    and the ELL propagator (over the device-built sector table) agree
+    with scipy to 1e-5 (float32 Lanczos)."""
     jh = jspin.HeisenbergHamiltonian(10, 1.0, 1.0, 1.0,
                                      h_z=np.r_[0.1, np.zeros(9)])
     h = spin_hamiltonian_from_jax(jh, "cpu")
@@ -170,12 +170,9 @@ def test_spin_subspace_routes():
         assert not s.use_trotter and s.dim == 252 and s._sector_n_up == 5
         psi0 = np.zeros(s.dim, complex)
         psi0[s._index_of(s.initial_state)[0]] = 1.0
-        if mode == "ell":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-                s.evolve(psi0)
-        else:
-            outs[mode] = s.evolve(psi0)
+        outs[mode] = s.evolve(psi0)
     assert np.abs(outs["dense"] - outs["scipy"]).max() < 1e-5
+    assert np.abs(outs["ell"] - outs["scipy"]).max() < 1e-5
     js = jskqd.SampleBasedKrylovDiagonalization(
         jh, jskqd.SKQDConfig(evolution="scipy"))
     np.testing.assert_array_equal(s.subspace, js.subspace)
