@@ -59,10 +59,21 @@ statevector):
    Epstein-Nesbet dE2 (device block and host closure) against the
    repo's deterministic record, then SKQD within the basis plus its top
    PT2-ranked externals, at the record's cap of 30,514 states and, through
-   ``FlowGuidedKrylovPipeline.run_skqd``, at the card's own cap; one warm
-   dense evolve beside an ELL one at 30,513 rows and at four smaller
-   subspaces (the dense/ELL crossover);
-10. the device eigensolvers: ``lanczos_ground_state_ell`` and the dense
+   ``FlowGuidedKrylovPipeline.run_skqd``, at the card's own cap; one ELL
+   evolve at 30,513 rows against scipy's f64 ``expm_multiply`` (the
+   tridiagonal's float32 ``eigh``, as in the JAX package); one warm dense
+   evolve beside an ELL one at 30,513 rows and at four smaller subspaces
+   (the dense/ELL crossover);
+10. the spin pipeline through ``FlowGuidedKrylovPipeline(h,
+   PipelineConfig(...)).run()`` at the huge tier's widths
+   (``SPIN_PIPE``): Heisenberg-24 at its record's depth (SzConservingFlow,
+   Selected-CI, sector SKQD through the ELL kernel) and TFIM-24 cut in
+   depth (DiscreteFlowSampler, Selected-CI, Trotter SKQD through
+   x_sweep), every energy held
+   variational against the sector's record and the free-fermion energy;
+   then the device PT2 scorer on each final stage-3 basis against the host
+   scorer, and twice bit for bit;
+11. the device eigensolvers: ``lanczos_ground_state_ell`` and the dense
    ``lanczos_ground_state`` on N2's full-space table against FCI, and
    ``exact_fullspace_ground_state`` on the periodic TFIM chain (h = 1) at
    20 sites (host-refined) and 24 sites (device only) against the
@@ -122,6 +133,24 @@ HEIS24_NEEL_E = -5.7              # the start state's product energy bound
 N2_DZ = {"basis": 370, "e_var": -109.10040332, "de2": -0.0154217836,
          "tol": 1e-6, "cap": 30_514, "restricted_dim": 30_513,
          "combined": 1033, "improvement_mha": 9.2254}
+# the propagator's m x m tridiagonal float32 eigh: an evolve against
+# scipy's f64 expm_multiply, relative 2-norm, past which float64 is needed
+PROPAGATOR_EIGH_TOL = 1e-5
+# the spin pipeline through FlowGuidedKrylovPipeline, as
+# examples/skqd_lattice_validation.py runs it: 2,048 samples asked (the
+# huge tier then sets 6,000), 100k shots, K = 12 (the runner's
+# --krylov-dim default, :629; the huge tier raises K to 10 at least and
+# keeps 12).  Heisenberg-24 at the record's full depth (800 epochs, 30
+# Selected-CI rounds, K = 12), as results/val_heisenberg24_pipeline_r3.txt
+# was run; TFIM-24 cut in depth (200 of 800 epochs, 10 of 30 rounds, K = 6
+# of 12: its full depth took 137 s, most of it host eigensolves of 60k+
+# states)
+SPIN_PIPE = {
+    "heisenberg": {"sites": 24, "epochs": 800, "min_epochs": 200,
+                   "sci_rounds": 30, "krylov_dim": 12},
+    "tfim": {"sites": 24, "epochs": 200, "min_epochs": 100,
+             "sci_rounds": 10, "krylov_dim": 6}}
+SPIN_PIPE_SHOTS, SPIN_PIPE_SAMPLES, SPIN_PIPE_KRYLOV = 100_000, 2048, 12
 EIGENSOLVER_TOL = 1e-3            # float32 device Lanczos against f64
 REFINED_TOL = 1e-8                # host-refined against the closed form
 SEEDED_ROWS = 250_000             # a basis above the seeded-eigsh threshold
@@ -1269,6 +1298,7 @@ def phase_restricted(device="cuda", rehearsal=False):
     del built
     psi = np.zeros(n, complex)
     psi[skqd._index_of(hf)[0]] = 1.0
+    res["record_cap"]["propagator_eigh"] = propagator_eigh_check(skqd, psi)
     rows = []
     if cuda:
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1367,6 +1397,294 @@ def phase_restricted(device="cuda", rehearsal=False):
             torch.cuda.empty_cache()
     print("restricted: " + json.dumps(res))
     return {"launches": launches + full_launches, "rows": rows}
+
+
+def propagator_eigh_check(skqd, psi):
+    """One ELL evolve of ``psi`` through the port's propagator (its
+    tridiagonal diagonalized in float32, as in the JAX package) against
+    scipy's f64 ``expm_multiply`` of the host subspace H: the relative
+    2-norm gap.  Fails past ``PROPAGATOR_EIGH_TOL``, where the
+    tridiagonal would need float64."""
+    import numpy as np
+    t0 = time.perf_counter()
+    want = skqd._evolve_scipy(psi)
+    res = {"rows": skqd.dim, "scipy_s": time.perf_counter() - t0}
+    got = skqd._evolve_device_ell(psi)
+    res["gap"] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    res["tolerance"] = PROPAGATOR_EIGH_TOL
+    print(f"propagator (float32 eigh) vs expm_multiply at {skqd.dim} rows: "
+          f"{res['gap']!r} (relative 2-norm; tolerance "
+          f"{PROPAGATOR_EIGH_TOL})")
+    if not res["gap"] <= PROPAGATOR_EIGH_TOL:
+        raise RuntimeError(f"propagator vs expm_multiply: {res}")
+    return res
+
+
+def spin_model(model, n_sites, device):
+    """(Hamiltonian, oracle energy, the oracle's source) of the spin
+    pipeline's two models, built as ``examples/skqd_lattice_validation.py``
+    builds them: the open Heisenberg chain with h_z = 0.1 on site 0 (its
+    S_z = 0 sector's ground energy: the f64 record at 24 sites, dense
+    diagonalization below 16) and the periodic TFIM at h = 0.5 (the
+    free-fermion closed form)."""
+    import numpy as np
+    from flow_guided_krylov_torch.hamiltonians import (HeisenbergHamiltonian,
+                                                       TransverseFieldIsing)
+    if model == "heisenberg":
+        h_z = np.zeros(n_sites)
+        h_z[0] = 0.1
+        ham = HeisenbergHamiltonian(n_sites, 1.0, 1.0, 1.0, h_z=h_z,
+                                    device=device)
+        if n_sites == 24:
+            return ham, HEIS24_SECTOR_E, "results/val_heisenberg24_sci.txt:82"
+        return (ham, float(np.linalg.eigvalsh(ham.exact_dense())[0]),
+                "dense eigvalsh")
+    ham = TransverseFieldIsing(n_sites, V=1.0, h=0.5, periodic=True,
+                               device=device)
+    return (ham, tfim_free_fermion_energy(n_sites, 1.0, 0.5),
+            "free-fermion closed form")
+
+
+def phase_spin_pipeline(device="cuda", rehearsal=False, seed=0):
+    """The spin pipeline through its entry point,
+    ``FlowGuidedKrylovPipeline(h, PipelineConfig(...)).run()``, as
+    ``examples/skqd_lattice_validation.py::run_large_spin_pipeline`` runs
+    it: Heisenberg-24 (the 2,704,156-state S_z sector: SzConservingFlow,
+    Selected-CI, sector SKQD through the ELL kernel; the pipeline is given
+    the sector's recorded energy, as the reference gives its oracle) and
+    TFIM-24 (2^24 states: DiscreteFlowSampler, Selected-CI, Trotter SKQD
+    through x_sweep; no exact energy given, as in the reference).  The huge
+    tier's widths (NQS [512]*6, flow [384, 384], 6,000 samples a step,
+    basis cap 32,768, diverse cap 16,384, 2,000 a Selected-CI round), the
+    depths of ``SPIN_PIPE``.  Checked: stage 1 on ``device``, every
+    basis energy variational against the oracle, stage 3 below stage 2,
+    stage 4 run, the kernel of each path launched; then, outside the
+    counted run, the device PT2 scorer against the host scorer on the
+    final stage-3 basis, twice bit for bit.  ``seed`` seeds the pipeline
+    (the smoke runs 0; other seeds measure the spread).  ``rehearsal`` runs
+    Heisenberg-12 and TFIM-10 at 30 epochs with small basis caps, for a
+    run without a card."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.krylov import (ResidualExpansionConfig,
+                                                 SelectedCIExpander)
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out_all = {}
+    for model, kernel in (("heisenberg", "ell_spmv"), ("tfim", "x_sweep")):
+        cut = dict(SPIN_PIPE[model], shots=SPIN_PIPE_SHOTS)
+        if rehearsal:
+            # small spaces: the caps keep the stages apart.  Not TFIM-8:
+            # with no exact energy the pipeline skips stage 4 below 300
+            # states, and its whole space has 256; Heisenberg-10's sector
+            # (252 states) has no room for the caps either
+            cut.update(sites=12 if model == "heisenberg" else 10,
+                       epochs=30, min_epochs=10, sci_rounds=4, krylov_dim=6,
+                       shots=5_000, basis_cap=600, diverse_cap=320,
+                       per_round=10)
+        n_sites = cut["sites"]
+        ham, e_ref, source = spin_model(model, n_sites, device)
+        conserving = model == "heisenberg"
+        cfg = PipelineConfig(max_epochs=cut["epochs"],
+                             min_epochs=cut["min_epochs"],
+                             samples_per_batch=SPIN_PIPE_SAMPLES,
+                             max_krylov_dim=SPIN_PIPE_KRYLOV,
+                             shots_per_krylov=cut["shots"], seed=seed,
+                             verbose=False)
+        pipe = FlowGuidedKrylovPipeline(
+            ham, cfg, exact_energy=e_ref if conserving else None)
+        c = pipe.config
+        tier = {k: getattr(c, k) for k in (
+            "max_epochs", "residual_iterations", "max_krylov_dim",
+            "shots_per_krylov")}
+        # the depth, after the tier (as the reference's runner does)
+        c.max_epochs, c.min_epochs = cut["epochs"], cut["min_epochs"]
+        c.residual_iterations = cut["sci_rounds"]
+        c.max_krylov_dim = cut["krylov_dim"]
+        c.shots_per_krylov = cut["shots"]
+        if rehearsal:
+            c.max_accumulated_basis = cut["basis_cap"]
+            c.max_diverse_configs = cut["diverse_cap"]
+            c.residual_configs_per_iter = cut["per_round"]
+
+        # ---- the main path: the four stages, kernel counts read around it
+        ell.ell_spmv_cuda.launches = 0
+        xs.x_sweep_cuda.launches = 0
+        xs._pauli_rotation_pair.cuda_calls = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pipe.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {"ell_spmv": ell.ell_spmv_cuda.launches,
+                    "x_sweep": xs.x_sweep_cuda.launches}
+        plain_rotations = xs._pauli_rotation_pair.cuda_calls
+        # -----------------------------------------------------------------
+
+        r = pipe.results
+        hist = r["stage1"]["history"]
+        s4 = r["stage4"]
+        energies = {"nf": out["nf_energy"], "residual": out["residual_energy"],
+                    "skqd": out["skqd_energy"], "final": out["final_energy"]}
+        if not s4["skipped"]:
+            energies["combined_min"] = min(s4["skqd"]["combined_energies"])
+        res = {"model": f"{model}{n_sites}", "seed": seed,
+               "n_valid": pipe.n_valid,
+               "flow": type(pipe.flow).__name__,
+               "oracle": e_ref, "oracle_source": source,
+               "exact_energy_given": conserving,
+               "tier": tier, "depth": {k: cut[k] for k in (
+                   "epochs", "sci_rounds", "krylov_dim", "shots")},
+               "nqs_hidden_dims": c.nqs_hidden_dims,
+               "flow_hidden": getattr(pipe.flow, "hidden", None),
+               "samples_per_batch": c.samples_per_batch,
+               "stage1_device": str(pipe.trainer.device),
+               "wall_s": wall,
+               "stage_walls_s": {k: v["total_s"]
+                                 for k, v in pipe.timer.summary().items()},
+               "epochs": len(hist["energies"]),
+               "median_epoch_ms": 1e3 * statistics.median(hist["epoch_times"]),
+               "first_epoch_ms": 1e3 * hist["epoch_times"][0],
+               "final_unique_ratio": hist["unique_ratios"][-1],
+               "accumulated_basis": len(pipe.trainer.accumulated_basis),
+               "nf_basis_size": out["nf_basis_size"],
+               "residual_basis_size": out["residual_basis_size"],
+               "stage3_iterations": r["stage3"]["n_iterations"],
+               "stage3_timings_s": r["stage3"]["timings"],
+               "stage4": s4.get("reason", "ran"),
+               "errors_mha": {k: 1000 * (e - e_ref)
+                              for k, e in energies.items()},
+               "kernel_launches": launches,
+               "plain_rotations_on_card": plain_rotations,
+               "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                     if cuda else None)}
+        if not s4["skipped"]:
+            res["combined_sizes"] = s4["skqd"]["combined_sizes"]
+        print(f"spin pipeline {res['model']}: " + json.dumps(res))
+        on_device = next(pipe.trainer.nqs.parameters()).device
+        if pipe.trainer.device.type != device or on_device.type != device:
+            raise RuntimeError(f"stage 1 ran on {on_device}, not {device}")
+        low = {k: e for k, e in energies.items() if not e >= e_ref - 1e-6}
+        if low:
+            raise RuntimeError(f"{res['model']}: energies below the oracle "
+                               f"{e_ref}: {low}")
+        if not out["residual_energy"] < out["nf_energy"]:
+            raise RuntimeError(f"{res['model']}: stage 3 "
+                               f"{out['residual_energy']} not below stage 2 "
+                               f"{out['nf_energy']}")
+        if s4["skipped"]:
+            raise RuntimeError(f"{res['model']}: stage 4 skipped: "
+                               f"{s4['reason']}")
+        if cuda and launches[kernel] <= 0:
+            raise RuntimeError(f"{res['model']}: the pipeline never launched "
+                               f"{kernel}")
+        if plain_rotations:
+            raise RuntimeError(f"{res['model']}: {plain_rotations} plain "
+                               f"rotations on the card")
+
+        # ---- outside the counted run: the device PT2 scorer on the final
+        # stage-3 basis against the host scorer, and twice bit for bit
+        basis = r["stage3"]["basis"]
+        rcfg = ResidualExpansionConfig(
+            configs_per_iteration=c.residual_configs_per_iter,
+            max_basis_size=len(basis) + c.residual_configs_per_iter)
+        host = SelectedCIExpander(ham, rcfg, use_device_scoring=False)
+        e3, coeffs = host._diagonalize(basis)
+        t0 = time.perf_counter()
+        cand_h, sc_h = host._pt2_candidates(basis, coeffs, e3)
+        host_s = time.perf_counter() - t0
+        dev = SelectedCIExpander(ham, rcfg, use_device_scoring=True)
+        got = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got.append(dev._pt2_topk_device(
+                basis[np.abs(coeffs) > rcfg.coefficient_threshold],
+                coeffs[np.abs(coeffs) > rcfg.coefficient_threshold]))
+            sync()
+        dev_s = time.perf_counter() - t0
+        cand_d, sc_d = dev._pt2_candidates(basis, coeffs, e3)
+        top = min(len(sc_h), 4 * c.residual_configs_per_iter)
+        rank_h = ham.keys(cand_h[np.argsort(-sc_h, kind="stable")[:top]])
+        rank_d = ham.keys(cand_d[np.argsort(-sc_d, kind="stable")[:top]])
+        scorer = {"basis": len(basis), "candidates_host": len(cand_h),
+                  "candidates_device": len(cand_d), "host_s": host_s,
+                  "device_block_s": dev_s,
+                  "top_overlap": len(np.intersect1d(rank_h, rank_d)) / top,
+                  "bit_equal": bool(np.array_equal(got[0][0], got[1][0])
+                                    and np.array_equal(got[0][1],
+                                                       got[1][1]))}
+        res["pt2_scorer"] = scorer
+        print(f"spin pipeline {res['model']} pt2 scorer: "
+              + json.dumps(scorer))
+        if not scorer["bit_equal"]:
+            raise RuntimeError("two device PT2 scorings differ")
+        if not scorer["top_overlap"] >= 0.99:
+            raise RuntimeError(f"device and host PT2 rankings: {scorer}")
+        out_all[model] = res
+        del pipe, host, dev
+        if cuda:
+            torch.cuda.empty_cache()
+    return out_all
+
+
+def stage4_witness(seed=0):
+    """Not part of the smoke: Heisenberg-24's pipeline, as
+    ``phase_spin_pipeline`` runs it, through stage 3, then its stage 4
+    twice on that stage-3 basis from the same seed: evolved by the device
+    ELL propagator (the pipeline's route) and by scipy's f64
+    ``expm_multiply`` on the host.  Both draw the same uniforms, so the
+    two sampled bases differ only where the evolved states do.  Prints one
+    JSON line per route: the stage-4 gain over stage 3, the combined basis
+    sizes, and the share of the final Krylov basis the two routes do not
+    share.  ``python3 -c 'import chip_smoke; chip_smoke.stage4_witness(1)'``
+    on the card."""
+    import numpy as np
+    from flow_guided_krylov_torch.krylov import FlowGuidedSKQD, SKQDConfig
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    cut = SPIN_PIPE["heisenberg"]
+    ham, e_ref, _ = spin_model("heisenberg", 24, "cuda")
+    pipe = FlowGuidedKrylovPipeline(ham, PipelineConfig(
+        max_epochs=cut["epochs"], min_epochs=cut["min_epochs"],
+        samples_per_batch=SPIN_PIPE_SAMPLES, max_krylov_dim=SPIN_PIPE_KRYLOV,
+        shots_per_krylov=SPIN_PIPE_SHOTS, seed=seed, verbose=False),
+        exact_energy=e_ref)
+    c = pipe.config
+    c.max_epochs, c.min_epochs = cut["epochs"], cut["min_epochs"]
+    c.residual_iterations = cut["sci_rounds"]
+    pipe.train_flow_nqs()
+    pipe.extract_and_select_basis()
+    s3 = pipe.run_residual_expansion()
+    finals = {}
+    for evolution in ("auto", "scipy"):
+        t0 = time.perf_counter()
+        out = FlowGuidedSKQD(ham, s3["basis"], SKQDConfig(
+            max_krylov_dim=c.max_krylov_dim, time_step=c.time_step,
+            shots_per_krylov=c.shots_per_krylov,
+            regularization=c.skqd_regularization, seed=c.seed,
+            evolution=evolution), initial_state=pipe.hf_state).run_with_nf()
+        finals[evolution] = out["krylov_bases"][-1][:, 0]
+        print("stage4 witness: " + json.dumps({
+            "seed": seed, "evolution": evolution,
+            "krylov_dim": c.max_krylov_dim, "shots": c.shots_per_krylov,
+            "stage3_basis": len(s3["basis"]),
+            "stage3_mha": 1000 * (s3["energy"] - e_ref),
+            "gain_mha": 1000 * (out["nf_only_energy"]
+                                - out["best_stable_energy"]),
+            "combined_sizes": out["combined_sizes"],
+            "wall_s": time.perf_counter() - t0}))
+    diff = len(np.setxor1d(finals["auto"], finals["scipy"]))
+    print("stage4 witness: " + json.dumps({
+        "final_krylov_basis_diff": diff / len(finals["scipy"])}))
 
 
 def dense_from_ell(diag, el_t, tgt_t):
@@ -1537,13 +1855,21 @@ def main():
     spin = phase_spin()
     sector = phase_sector()
     restricted = phase_restricted()
+    spin_pipe = phase_spin_pipeline()
     eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
     rows += sector["rows"] + restricted["rows"] + eigen["rows"]
     by_path = {"n2_stage4": n2["launches"], "sector": sector["launches"],
+               "heisenberg24_pipeline":
+                   spin_pipe["heisenberg"]["kernel_launches"]["ell_spmv"],
                "restricted": restricted["launches"],
                "eigensolvers": eigen["launches"]}
     if min(by_path.values()) <= 0:
         raise RuntimeError(f"a path never launched the ELL kernel: {by_path}")
+    sweep_by_path = {
+        "tfim24_skqd": spin["x_sweep_launches"],
+        "tfim24_pipeline": spin_pipe["tfim"]["kernel_launches"]["x_sweep"]}
+    if min(sweep_by_path.values()) <= 0:
+        raise RuntimeError(f"a path never launched x_sweep: {sweep_by_path}")
     main_row = next(r for r in rows if r["table"] == "n2" and r["B"] == 2
                     and r["psi_on_chip"])
     low = next(r for r in sweep_rows
@@ -1573,7 +1899,8 @@ def main():
         "name": "x_sweep", "route": "cuda",
         "source": "flow_guided_krylov_torch/csrc/x_sweep.cu",
         "replaces": "flow_guided_krylov_tpu/ops/pallas_trotter.py:66",
-        "launches": spin["x_sweep_launches"],
+        "launches": sum(sweep_by_path.values()),
+        "launches_by_path": sweep_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
         "ms": low["ms"], "device_ms": low["device_ms"],
         "plain_ms": low["plain_ms"],

@@ -19,7 +19,8 @@ from .ops.excitations import ExcitationSpec
 from .ops.slater import SlaterTables
 
 __all__ = ["tables_from_jax", "ell_from_jax", "spin_hamiltonian_from_jax",
-           "dense_nqs_state_dict", "particle_flow_state_dict"]
+           "dense_nqs_state_dict", "particle_flow_state_dict",
+           "sz_flow_state_dict", "discrete_flow_state_dict"]
 
 _TABLE_FIELDS = ("n_orb", "n_alpha", "n_beta", "e_nuc", "h1", "h2", "jj",
                  "ex", "jmat", "kmat", "spec_a", "spec_b", "ab_grid")
@@ -115,4 +116,25 @@ def particle_flow_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
            torch.tensor(np.asarray(p["alpha_prior_logits"]))}
     for name in ("a2b_in", "a2b_out", "beta_h0", "beta_h1", "beta_out"):
         out.update(_linear(name + ".", p[name]))
+    return out
+
+
+def sz_flow_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``SzConservingFlow`` params tree -> the port's
+    ``SzConservingFlow`` ``state_dict`` (``site_logits``)."""
+    p = _flax_params(tree)
+    return {"site_logits": torch.tensor(np.asarray(p["site_logits"]))}
+
+
+def discrete_flow_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``DiscreteFlowSampler`` params tree -> the port's
+    ``DiscreteFlowSampler`` ``state_dict`` (``coupling_i/Dense_j`` ->
+    ``couplings.i.dense.j``)."""
+    p = _flax_params(tree)
+    out = {}
+    n_layers = sum(1 for k in p if k.startswith("coupling_"))
+    for i in range(n_layers):
+        for j in range(4):
+            out.update(_linear(f"couplings.{i}.dense.{j}.",
+                               p[f"coupling_{i}"][f"Dense_{j}"]))
     return out

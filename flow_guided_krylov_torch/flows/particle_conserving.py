@@ -10,8 +10,12 @@ the caller passes in (the parity tests feed the JAX package's).  The
 layer names and the JAX module's quirks are kept, since training depends
 on them and weights map one to one: ``beta_h0`` reads
 ``concat(zeros(n_orb), context)``, and ``beta_h1`` has width
-``hidden_dims[-1]``.  ``SzConservingFlow`` and ``OrbitalScoringNetwork``
-are not ported yet.
+``hidden_dims[-1]``.
+
+:class:`SzConservingFlow` is the spin analog of the alpha channel: k-hot
+configurations of n sites from learnable site logits, for spin
+Hamiltonians that conserve total S_z.  ``OrbitalScoringNetwork`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from torch import nn
 
 from ..models.dense import lecun_normal_
 
-__all__ = ["ParticleConservingFlow", "gumbel_topk",
+__all__ = ["ParticleConservingFlow", "SzConservingFlow", "gumbel_topk",
            "verify_particle_conservation"]
 
 
@@ -128,6 +132,52 @@ class ParticleConservingFlow(nn.Module):
         return (_topk_log_prob(self._alpha_logits(configs.shape[0]), alpha,
                                self.n_alpha)
                 + _topk_log_prob(self._beta_logits(alpha), beta, self.n_beta))
+
+
+class SzConservingFlow(nn.Module):
+    """Exact-magnetization spin sampler: Gumbel top-k over site logits.
+
+    For a Hamiltonian that conserves total S_z the ground state lies in
+    one fixed-popcount sector, so every sample has exactly ``n_up`` up
+    spins.  The flax parameter is ``site_logits`` (n,), zeros at start.
+    The methods take the arguments of :class:`~.discrete.
+    DiscreteFlowSampler`'s, so one :class:`~.spin_training.
+    SpinFlowTrainer` drives either; the top-k probability is exact, so
+    ``estimate_discrete_prob`` ignores its Monte Carlo arguments."""
+
+    def __init__(self, n_sites: int, n_up: int):
+        super().__init__()
+        self.n_sites = n_sites
+        self.n_up = n_up
+        self.site_logits = nn.Parameter(torch.zeros(n_sites))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        with torch.no_grad():
+            self.site_logits.zero_()
+
+    def _logits(self, batch_size: int) -> torch.Tensor:
+        return self.site_logits[None, :].expand(batch_size, -1)
+
+    def sample(self, batch: int, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, n) k-hot configurations and (B,) log-probs; ``noise`` (B, n)
+        uniforms in [1e-10, 1) replaces the draw from ``generator``."""
+        logits = self._logits(batch)
+        occ = gumbel_topk(logits, self.n_up, 1.0, generator, noise)
+        return occ, _topk_log_prob(logits, torch.round(occ).detach(),
+                                   self.n_up)
+
+    def log_prob(self, configs: torch.Tensor) -> torch.Tensor:
+        return _topk_log_prob(self._logits(configs.shape[0]), configs,
+                              self.n_up)
+
+    def estimate_discrete_prob(self, configs: torch.Tensor, n_mc: int = 0,
+                               generator: Optional[torch.Generator] = None,
+                               eps: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+        return torch.exp(self.log_prob(configs))
 
 
 def verify_particle_conservation(configs, n_alpha: int, n_beta: int,

@@ -3,7 +3,8 @@ sampling."""
 
 from .basis_sampler import (CircuitSamplerConfig, KrylovBasisSampler,
                             create_circuit_sampler)
-from .residual_expansion import (ResidualExpansionConfig, SelectedCIExpander,
+from .residual_expansion import (ResidualBasedExpander,
+                                 ResidualExpansionConfig, SelectedCIExpander,
                                  iterative_residual_expansion)
 from .skqd import (EvolutionBudgetError, FlowGuidedSKQD,
                    SampleBasedKrylovDiagonalization, SKQDConfig, lanczos_expm,
@@ -11,7 +12,7 @@ from .skqd import (EvolutionBudgetError, FlowGuidedSKQD,
 
 __all__ = [
     "ResidualExpansionConfig", "SelectedCIExpander",
-    "iterative_residual_expansion",
+    "ResidualBasedExpander", "iterative_residual_expansion",
     "SKQDConfig", "SampleBasedKrylovDiagonalization", "FlowGuidedSKQD",
     "EvolutionBudgetError", "lanczos_expm", "lanczos_expm_ell",
     "supported_evolution_dim",

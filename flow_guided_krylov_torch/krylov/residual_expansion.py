@@ -8,8 +8,11 @@ single device and single word per spin channel:
   over all external connected determinants, score
   eps_i = |<i|H|Phi>|^2 / |E - E_i|, add the top-k, rediagonalize, and
   reject the round if the energy rose.
+* :class:`ResidualBasedExpander` — the raw-residual alternative:
+  r_i = max_j |c_j <i|H|j>|, keep-max dedup, no PT2 denominator.
 * :func:`iterative_residual_expansion` — the loop with stagnation-based
-  early stopping.
+  early stopping, the ``growth_factor`` schedule and ``use_pt2=False``
+  (the raw-residual expander).
 
 * :meth:`SelectedCIExpander.pt2_correction` — the exact Epstein-Nesbet
   dE2 of a variational state over every external determinant, which the
@@ -32,10 +35,10 @@ import numpy as np
 import torch
 
 from ..hamiltonians.base import Hamiltonian
-from ..ops.bits import keys_device, to_device, to_host
+from ..ops.bits import to_device
 
 __all__ = ["ResidualExpansionConfig", "SelectedCIExpander",
-           "iterative_residual_expansion"]
+           "ResidualBasedExpander", "iterative_residual_expansion"]
 
 
 def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
@@ -57,16 +60,49 @@ def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
     return uniq, first_idx, inverse
 
 
+def _sum_by_key(key: torch.Tensor, contrib: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique keys ascending, the signed sum of ``contrib`` over each) of
+    (R,) int64 keys.  The sort is stable and ``torch.segment_reduce`` adds
+    each run's terms in their sorted order in one thread, so two calls
+    give the same bits on a card (``index_add_`` adds with float atomics
+    in no fixed order)."""
+    key, order = torch.sort(key, stable=True)
+    contrib = contrib[order]
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(first)[:, 0]
+    lengths = torch.diff(starts, append=starts.new_tensor([len(key)]))
+    return key[starts], torch.segment_reduce(contrib, "sum", lengths=lengths)
+
+
 @dataclass
 class ResidualExpansionConfig:
     """Expansion knobs (the JAX package's names and defaults)."""
     configs_per_iteration: int = 100
     residual_threshold: float = 1e-4
     max_iterations: int = 10
+    energy_convergence: float = 1e-6
     stagnation_threshold: float = 5e-5    # 0.05 mHa
     stagnation_patience: int = 2
     max_basis_size: int = 4096
     coefficient_threshold: float = 1e-6   # |c_j| cutoff for source states
+    # proportional growth: when > 0, each round of
+    # iterative_residual_expansion adds max(configs_per_iteration,
+    # growth_factor * len(basis)) states (0: the fixed schedule)
+    growth_factor: float = 0.0
+    # source screening: when > 0, a source row j is scored only if
+    # |c_j| * Hmax >= source_screen * residual_threshold, Hmax the largest
+    # off-diagonal |H_ij| of a strided sample of the sources.  A heuristic
+    # (small sources can still add up across rows); the exact dE2 sums
+    # over the whole basis regardless.  0 disables it.
+    source_screen: float = 0.0
+    # row cap of the device scorer: when > 0, each scoring block keeps
+    # only its pt2_sort_rows rows of largest |c_j H_ij| (an exact top-k)
+    # before the key sort, and at most that many candidates.  Selection
+    # then drops rows that could only matter by accumulation, as the
+    # source screen does; the exact dE2 never drops rows.  0 disables it.
+    pt2_sort_rows: int = 0
     # warm-started Davidson for the per-round eigensolve above 2048 dets
     # (eigsh when it does not converge); False solves with warm eigsh only
     use_davidson: bool = True
@@ -103,6 +139,9 @@ class SelectedCIExpander:
         self._inc_H = None
         self._pend: list = []
         self._pt2_row_cap: Optional[int] = None
+        # largest off-diagonal |H_ij| of a sample of sources, found once
+        # for the source screen
+        self._hmax: Optional[float] = None
         # cumulative wall per phase (diag = host eigensolve incl. the
         # incremental CSR growth; score = PT2 candidate scoring)
         self.timings: Dict[str, float] = {"diag": 0.0, "score": 0.0,
@@ -280,18 +319,20 @@ class SelectedCIExpander:
 
     def _pt2_topk_device(self, src: np.ndarray, src_c: np.ndarray
                          ) -> Tuple[np.ndarray, np.ndarray]:
-        """Device block: connections of all sources, signed coupling
-        accumulation per unique target (int64 key sort + segment-sum),
-        exact top-K by coupling^2.  Returns host (cand (K', 2) uint32,
-        coupling (K',) float64).
+        """Device block: connections of all sources, one int64 key per
+        target (``Hamiltonian.keys_device``: the word itself for a spin
+        configuration, alpha and beta in one key for a determinant), the
+        signed coupling of every unique key, and the top K keys by
+        coupling^2.  Returns host (cand (K', W) uint32, coupling (K',)
+        float64), one row per key of a block.
 
-        Every returned row carries either the full accumulated coupling of
-        its key within its block (one representative row per key) or 0,
-        so the host merge sums rows grouped by key — exact across blocks.
-        The segment-sum uses ``index_add_``, whose float32 atomics on CUDA
-        add in no fixed order (couplings may differ in the last bits from
-        run to run).
-        """
+        A block's partial couplings of a key add up in the host's grouped
+        sum, so the merge over blocks is exact; :func:`_sum_by_key` makes
+        two calls bit-equal on a card.  With ``pt2_sort_rows`` a block
+        first keeps
+        its rows of largest |c_j H_ij| (a stable descending sort: an exact
+        top-k whose ties keep the lower row, as the JAX package's top-k
+        does on the CPU)."""
         h = self.h
         dev = h.device
         C = h.n_connections
@@ -303,31 +344,28 @@ class SelectedCIExpander:
         # the coupling^2 ranking, plus a wide margin of externals for the
         # final rescore with the |E - E_i| denominator
         K_max = c.max_basis_size + 16 * c.configs_per_iteration
-        cands, couplings = [], []
+        cap_rows = int(c.pt2_sort_rows)
+        if cap_rows:
+            K_max = min(K_max, cap_rows)
+        keys, couplings = [], []
         for i in range(0, len(src), self._pt2_row_cap):
             rows = to_device(src[i:i + self._pt2_row_cap], dev)
             coeff = torch.as_tensor(src_c[i:i + self._pt2_row_cap],
                                     dtype=torch.float32, device=dev)
             conn, elems = h.connections_device(rows)
-            words = conn.reshape(-1, 2)
             contrib = (elems * coeff[:, None]).reshape(-1)
-            key, order = torch.sort(keys_device(words))
-            contrib = contrib[order]
-            first = torch.ones_like(key, dtype=torch.bool)
-            first[1:] = key[1:] != key[:-1]
-            seg = torch.cumsum(first, 0) - 1
-            coupling = torch.zeros_like(contrib).index_add_(0, seg,
-                                                            contrib)[seg]
-            score = torch.where(first, coupling * coupling,
-                                torch.full_like(coupling, -1.0))
-            sc, idx = torch.topk(score, min(K_max, score.numel()))
-            # non-first duplicate rows (score -1) carry 0 so the host's
-            # grouped sum never double-counts a key
-            cands.append(to_host(words[order[idx]]))
-            couplings.append(torch.where(sc >= 0.0, coupling[idx],
-                                         torch.zeros_like(sc))
-                             .double().cpu().numpy())
-        return np.concatenate(cands), np.concatenate(couplings)
+            key = h.keys_device(conn).reshape(-1)
+            del conn, elems
+            if cap_rows and contrib.numel() > cap_rows:
+                sel = torch.sort(contrib.abs(), descending=True,
+                                 stable=True).indices[:cap_rows]
+                contrib, key = contrib[sel], key[sel]
+            key, coupling = _sum_by_key(key, contrib)
+            idx = torch.topk(coupling * coupling,
+                             min(K_max, coupling.numel())).indices
+            keys.append(h.keys_to_host(key[idx]))
+            couplings.append(coupling[idx].double().cpu().numpy())
+        return h.unkey(np.concatenate(keys)), np.concatenate(couplings)
 
     def _pt2_candidates(self, basis: np.ndarray, coeffs: np.ndarray,
                         energy: float
@@ -349,6 +387,19 @@ class SelectedCIExpander:
         src = basis[sig]
         src_c = coeffs[sig]
 
+        if c.source_screen > 0.0 and len(src) > 1:
+            # a row j with |c_j| * Hmax below the selection cutoff cannot
+            # by itself push a candidate over it: skip scoring it
+            if self._hmax is None:
+                sample = src[:: max(1, len(src) // 256)][:256]
+                _, elems = self.h.connections_np(sample)
+                self._hmax = float(np.abs(elems).max())
+            c_min = (c.source_screen * c.residual_threshold
+                     / max(self._hmax, 1e-12))
+            scr = np.abs(src_c) >= c_min
+            if scr.any() and not scr.all():
+                src, src_c = src[scr], src_c[scr]
+
         use_device = self.use_device_scoring
         if use_device is None:
             use_device = (len(src) * self.h.n_connections
@@ -357,9 +408,9 @@ class SelectedCIExpander:
         if use_device:
             cand_all, coupling_all = self._pt2_topk_device(src, src_c)
             keys = self.h.keys(cand_all)
-            # grouped SUM per key: duplicate rows carry 0 by construction,
-            # and per-block partial couplings of one key add up to the
-            # exact coupling
+            # grouped SUM per key: a block returns one row per key, and
+            # per-block partial couplings of one key add up to the exact
+            # coupling
             uniq, first_idx, inverse = _sorted_unique(keys,
                                                       return_inverse=True)
             coupling_all = np.bincount(inverse, weights=coupling_all,
@@ -470,26 +521,16 @@ class SelectedCIExpander:
         each, a stable sort, the signed coupling of every unique key, the
         externals by ``searchsorted`` against the sorted basis keys, an
         exact descending sort by coupling^2 and its top ``cap`` rows.
-        Returns (keys, couplings, scores, number of weighted externals).
-
-        The segment sum is ``torch.segment_reduce`` over the sorted runs:
-        one thread adds a run's terms in their sorted order, so two runs
-        give the same bits (an ``index_add_`` on CUDA adds with float
-        atomics in no fixed order)."""
+        Returns (keys, couplings, scores, number of weighted externals);
+        :func:`_sum_by_key` makes two calls bit-equal."""
         h = self.h
         dev = h.device
         conn, elems = h.connections_device(to_device(src, dev))
         coeff = torch.as_tensor(src_c, dtype=torch.float32, device=dev)
         contrib = (elems * coeff[:, None]).reshape(-1)
-        key, order = torch.sort(h.keys_device(conn).reshape(-1), stable=True)
+        key = h.keys_device(conn).reshape(-1)
         del conn, elems
-        contrib = contrib[order]
-        first = torch.ones_like(key, dtype=torch.bool)
-        first[1:] = key[1:] != key[:-1]
-        starts = torch.nonzero(first)[:, 0]
-        lengths = torch.diff(starts, append=starts.new_tensor([len(key)]))
-        coupling = torch.segment_reduce(contrib, "sum", lengths=lengths)
-        key = key[starts]
+        key, coupling = _sum_by_key(key, contrib)
         pos = torch.searchsorted(basis_keys, key).clamp_(
             max=len(basis_keys) - 1)
         score = torch.where(basis_keys[pos] != key, coupling * coupling,
@@ -578,9 +619,70 @@ class SelectedCIExpander:
             "yet (ROADMAP Queue 1, Multiword)")
 
 
+class ResidualBasedExpander:
+    """Raw-residual selection: r_i = max_j |c_j <i|H|j>| over the
+    significant sources, one row per external configuration (the largest),
+    the top ``n_add`` above ``residual_threshold`` added a round, with
+    variational rejection.  Host f64 throughout, as in the JAX package."""
+
+    def __init__(self, hamiltonian: Hamiltonian,
+                 config: Optional[ResidualExpansionConfig] = None):
+        self.h = hamiltonian
+        self.config = config or ResidualExpansionConfig()
+
+    def find_residual_configs(self, basis: np.ndarray, coeffs: np.ndarray,
+                              n_add: int) -> np.ndarray:
+        c = self.config
+        basis = np.atleast_2d(basis)
+        sig = np.abs(coeffs) > c.coefficient_threshold
+        if not sig.any():
+            return np.empty((0, basis.shape[1]), np.uint32)
+        conn, elems = self.h.connections_np(basis[sig])
+        flat = conn.reshape(-1, conn.shape[-1])
+        resid = np.abs(elems * coeffs[sig][:, None]).reshape(-1)
+
+        keys = self.h.keys(flat)
+        basis_keys = np.sort(self.h.keys(basis))
+        pos = np.clip(np.searchsorted(basis_keys, keys), 0,
+                      len(basis_keys) - 1)
+        ext = basis_keys[pos] != keys
+        keys, flat, resid = keys[ext], flat[ext], resid[ext]
+        if len(keys) == 0:
+            return np.empty((0, basis.shape[1]), np.uint32)
+
+        # keep-max dedup
+        order = np.lexsort((-resid, keys))
+        keys_s, flat_s, resid_s = keys[order], flat[order], resid[order]
+        first = np.concatenate([[True], keys_s[1:] != keys_s[:-1]])
+        cand, r = flat_s[first], resid_s[first]
+        keep = r > c.residual_threshold
+        cand, r = cand[keep], r[keep]
+        top = np.argsort(-r)[:n_add]
+        return cand[top]
+
+    def expand_basis(self, basis: np.ndarray,
+                     n_add: Optional[int] = None) -> Dict:
+        basis = np.atleast_2d(np.asarray(basis, np.uint32))
+        vals, vecs = self.h.exact_ground_state(basis, k=1)
+        e0, coeffs = float(vals[0]), vecs[:, 0]
+        n_add = n_add or self.config.configs_per_iteration
+        cand = self.find_residual_configs(basis, coeffs, n_add)
+        if len(cand) == 0:
+            return {"basis": basis, "energy": e0, "n_added": 0,
+                    "accepted": False}
+        new_basis = np.concatenate([basis, cand], axis=0)
+        e1 = float(self.h.exact_ground_state(new_basis, k=1)[0][0])
+        if e1 > e0 + 1e-10:
+            return {"basis": basis, "energy": e0, "n_added": 0,
+                    "accepted": False, "rejected_energy": e1}
+        return {"basis": new_basis, "energy": e1, "n_added": int(len(cand)),
+                "accepted": True}
+
+
 def iterative_residual_expansion(hamiltonian: Hamiltonian,
                                  initial_basis: np.ndarray,
                                  config: Optional[ResidualExpansionConfig] = None,
+                                 use_pt2: bool = True,
                                  verbose: bool = False,
                                  pt2_correct: bool = False,
                                  pt2_cap: Optional[int] = None,
@@ -588,7 +690,10 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
                                  ) -> Dict:
     """Loop expansion rounds with stagnation-based early stopping.
 
-    ``pt2_correct`` adds the exact Epstein-Nesbet dE2 of the final state
+    ``use_pt2`` picks the PT2-scored :class:`SelectedCIExpander` (whose
+    rounds grow by ``config.growth_factor`` when it is set), else the
+    raw-residual :class:`ResidualBasedExpander` (fixed rounds, no
+    checkpoints, no dE2).  ``pt2_correct`` adds the exact Epstein-Nesbet dE2 of the final state
     (``pt2_de2``, ``pt2_corrected_energy``, ``pt2_n_external``,
     ``pt2_exact``).  ``pt2_checkpoints``: ascending basis sizes at which
     to also run it mid-trajectory and record (basis_size, e_var, de2,
@@ -600,7 +705,8 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
     if cfg.max_basis_size < len(basis) + cfg.configs_per_iteration:
         needed = len(basis) + cfg.max_iterations * cfg.configs_per_iteration
         cfg = dataclasses.replace(cfg, max_basis_size=needed)
-    expander = SelectedCIExpander(hamiltonian, cfg)
+    expander = (SelectedCIExpander(hamiltonian, cfg) if use_pt2
+                else ResidualBasedExpander(hamiltonian, cfg))
     energies = []
     best_energy = np.inf
     best_basis = basis
@@ -625,7 +731,11 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
                       f"exact={row['exact']}")
 
     for it in range(cfg.max_iterations):
-        out = expander.expand_basis(basis)
+        n_add = None
+        if use_pt2 and cfg.growth_factor > 0:
+            n_add = max(cfg.configs_per_iteration,
+                        int(cfg.growth_factor * len(basis)))
+        out = expander.expand_basis(basis, n_add=n_add)
         e = out["energy"]
         energies.append(e)
         if e < best_energy - 1e-12:
@@ -635,22 +745,23 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
             improvement = 0.0
         basis = out["basis"]
         if verbose:
-            t = expander.timings
+            t = getattr(expander, "timings", None)
+            split = (f" [diag {t['diag']:.0f}s score {t['score']:.0f}s]"
+                     if t else "")
             print(f"  residual iter {it}: E={e:.8f} "
                   f"basis={len(basis)} added={out['n_added']} "
-                  f"accepted={out['accepted']} "
-                  f"[diag {t['diag']:.0f}s score {t['score']:.0f}s]")
-        if out["accepted"]:
-            maybe_checkpoint(basis)
-        else:
+                  f"accepted={out['accepted']}{split}")
+        if not out["accepted"]:
             break
+        if use_pt2:
+            maybe_checkpoint(basis)
         if improvement < cfg.stagnation_threshold:
             stall += 1
             if stall >= cfg.stagnation_patience:
                 break
         else:
             stall = 0
-    if verbose:
+    if verbose and use_pt2:
         t = expander.timings
         print(f"  [sci timings] diag {t['diag']:.1f} s "
               f"(H-build {t['diag_build']:.1f} s), "
@@ -659,7 +770,7 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
            "energies": energies, "n_iterations": len(energies)}
     if checkpoint_rows:
         res["pt2_checkpoints"] = checkpoint_rows
-    if pt2_correct:
+    if pt2_correct and use_pt2:
         # exact Epstein-Nesbet dE2 of the converged variational state (the
         # final-basis diagonalization hits the fingerprint cache)
         e_b, c_b = expander._diagonalize(best_basis)

@@ -1,36 +1,48 @@
-"""Four-stage Flow-Guided Krylov pipeline, molecular path.
+"""Four-stage Flow-Guided Krylov pipeline, molecular and spin.
 
 Counterpart of ``flow_guided_krylov_tpu/pipeline.py``: the same
 ``PipelineConfig`` field names, defaults and size tiers, the same stage
 methods and results-dict keys, on the Hamiltonian's device:
 
-  Stage 1  flow + NQS co-training          (flows/physics_guided_training)
-  Stage 2  diversity selection              (postprocessing/diversity_selection)
+  Stage 1  flow + NQS co-training          (flows/physics_guided_training,
+                                             flows/spin_training)
+  Stage 2  diversity selection (molecules)  (postprocessing/diversity_selection)
+           or top-|psi|^2 selection (spins)
   Stage 3  PT2 Selected-CI expansion        (krylov/residual_expansion)
   Stage 4  SKQD refinement + combination    (krylov/skqd)
 
+A molecule trains the particle-conserving flow; a spin model that
+conserves S_z trains the ``SzConservingFlow`` in the sector of its
+lowest product state, any other spin model the ``DiscreteFlowSampler``.
+Stage 4 evolves a molecule in its full or a restricted subspace, a spin
+model in its sector (ELL) or as a 2^n statevector (Trotter).
 Stage-3 early stopping (< 0.05 mHa improvement twice, best basis kept),
 the stage-4 skip rules and the SKQD validation (energies below exact -
-1 mHa are rejected) are the JAX package's.  Branches not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: spin Hamiltonians, the
-subspace-energy objective (``use_local_energy=False``), checkpointing and
-resume, more than one device, and restricted-subspace stage 4.
+1 mHa are rejected) are the JAX package's.  Branches not ported raise
+``NotImplementedError`` naming their ROADMAP entry: the subspace-energy
+objective (``use_local_energy=False``), checkpointing and resume, more
+than one device, and the discrete flow on a molecule
+(``use_particle_conserving_flow=False``), which fails in the JAX package.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from math import comb
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .flows.discrete import DiscreteFlowSampler
 from .flows.particle_conserving import (ParticleConservingFlow,
+                                        SzConservingFlow,
                                         verify_particle_conservation)
 from .flows.physics_guided_training import (PhysicsGuidedConfig,
                                             PhysicsGuidedFlowTrainer)
-from .hamiltonians.molecular import MOLECULE_FACTORIES, MolecularHamiltonian
+from .flows.spin_training import SpinFlowTrainer
+from .hamiltonians.molecular import MOLECULE_FACTORIES
 from .krylov.residual_expansion import (ResidualExpansionConfig,
                                         SelectedCIExpander)
 from .krylov.skqd import (FlowGuidedSKQD, SKQDConfig,
@@ -190,11 +202,10 @@ class PipelineConfig:
 
 
 class FlowGuidedKrylovPipeline:
-    """The four stages for molecular Hamiltonians on
+    """The four stages for molecular and spin Hamiltonians on
     ``hamiltonian.device``."""
 
-    def __init__(self, hamiltonian: MolecularHamiltonian,
-                 config: Optional[PipelineConfig] = None,
+    def __init__(self, hamiltonian, config: Optional[PipelineConfig] = None,
                  exact_energy: Optional[float] = None):
         self.h = hamiltonian
         self.config = config or PipelineConfig()
@@ -202,16 +213,13 @@ class FlowGuidedKrylovPipeline:
         self.results: Dict = {}
         self.is_molecular = hasattr(hamiltonian, "n_alpha")
         c = self.config
-        if not self.is_molecular:
+        if self.is_molecular and not c.use_particle_conserving_flow:
             raise NotImplementedError(
-                "spin Hamiltonians need SzConservingFlow, "
-                "DiscreteFlowSampler and SpinFlowTrainer, not ported yet "
-                f"({_ROADMAP} item 1, spin systems)")
-        if not c.use_particle_conserving_flow:
-            raise NotImplementedError(
-                "use_particle_conserving_flow=False needs "
-                "DiscreteFlowSampler, not ported yet "
-                f"({_ROADMAP} item 1, spin systems)")
+                "use_particle_conserving_flow=False on a molecule is not "
+                "ported: the JAX package's own branch fails there (its "
+                "_spin_reference_state_for passes (3, 1) spin rows to "
+                "MolecularHamiltonian.diagonal_np, a ValueError on H2); "
+                "a fault of the reference, ROADMAP.md, Queue 3")
         if not c.use_local_energy:
             raise NotImplementedError(
                 "use_local_energy=False needs the subspace-energy trainer "
@@ -227,15 +235,36 @@ class FlowGuidedKrylovPipeline:
                 f"({_ROADMAP} item 3, multi-device)")
 
         self.device = hamiltonian.device
-        self.n_valid = hamiltonian.n_valid_configs
+        self._spin_sector_n_up: Optional[int] = None
+        if self.is_molecular:
+            self.n_valid = hamiltonian.n_valid_configs
+        elif getattr(hamiltonian, "conserves_magnetization", False):
+            # the ground state lies in the fixed-popcount sector of the
+            # reference product state: that sector is the search space
+            ref = int(self._spin_reference_state_for(hamiltonian)[0])
+            self._spin_sector_n_up = bin(ref).count("1")
+            self.n_valid = comb(hamiltonian.n_sites, self._spin_sector_n_up)
+        else:
+            self.n_valid = 1 << hamiltonian.n_sites
         c.adapt_to_system_size(self.n_valid)
-        self.flow = ParticleConservingFlow(
-            hamiltonian.n_orbitals, hamiltonian.n_alpha, hamiltonian.n_beta,
-            hidden_dims=tuple(c.nf_hidden_dims))
-        self.nqs = DenseNQS(2 * hamiltonian.n_orbitals,
-                            hidden_dims=tuple(c.nqs_hidden_dims))
-        self.hf_state = hamiltonian.get_hf_state()
-        self.trainer: Optional[PhysicsGuidedFlowTrainer] = None
+        if self.is_molecular:
+            self.flow = ParticleConservingFlow(
+                hamiltonian.n_orbitals, hamiltonian.n_alpha,
+                hamiltonian.n_beta, hidden_dims=tuple(c.nf_hidden_dims))
+            self.nqs = DenseNQS(2 * hamiltonian.n_orbitals,
+                                hidden_dims=tuple(c.nqs_hidden_dims))
+            self.hf_state = hamiltonian.get_hf_state()
+        else:
+            n = hamiltonian.n_sites
+            if (self._spin_sector_n_up is not None
+                    and c.use_particle_conserving_flow):
+                self.flow = SzConservingFlow(n, self._spin_sector_n_up)
+            else:
+                self.flow = DiscreteFlowSampler(
+                    n, hidden=max(64, c.nf_hidden_dims[0] // 2))
+            self.nqs = DenseNQS(n, hidden_dims=tuple(c.nqs_hidden_dims))
+            self.hf_state = self._spin_reference_state_for(hamiltonian)
+        self.trainer = None
         self.nf_basis: Optional[np.ndarray] = None
         self.timer = StageTimer()
 
@@ -247,6 +276,8 @@ class FlowGuidedKrylovPipeline:
         c = self.config
         if c.verbose:
             print("\n[Stage 1] NF-NQS co-training")
+        if not self.is_molecular:
+            return self._train_flow_nqs_spin()
         mem = MemoryBudget.for_device(self.device)
         tcfg = PhysicsGuidedConfig(
             num_epochs=c.max_epochs, min_epochs=c.min_epochs,
@@ -284,6 +315,37 @@ class FlowGuidedKrylovPipeline:
         }
         return self.results["stage1"]
 
+    @staticmethod
+    def _spin_reference_state_for(h) -> np.ndarray:
+        """Lowest-diagonal product state among all-down, all-up and
+        Neel: a (1,) uint32 word."""
+        n = h.n_sites
+        neel = sum(1 << i for i in range(0, n, 2))
+        cands = np.array([[0], [(1 << n) - 1], [neel]], np.uint32)
+        return cands[int(np.argmin(h.diagonal_np(cands)))]
+
+    def _train_flow_nqs_spin(self) -> Dict:
+        c = self.config
+        tcfg = PhysicsGuidedConfig(
+            num_epochs=c.max_epochs, min_epochs=c.min_epochs,
+            samples_per_batch=c.samples_per_batch,
+            teacher_weight=c.teacher_weight, physics_weight=c.physics_weight,
+            entropy_weight=c.entropy_weight, flow_lr=c.nf_lr,
+            nqs_lr=c.nqs_lr, convergence_threshold=c.convergence_threshold,
+            max_accumulated_basis=c.max_accumulated_basis,
+            seed=c.seed, verbose=c.verbose)
+        self.trainer = SpinFlowTrainer(self.h, self.flow, self.nqs, tcfg)
+        t0 = time.perf_counter()
+        history = self.trainer.train()
+        self.results["stage1"] = {
+            "history": history,
+            "final_energy": history["energies"][-1],
+            "n_epochs": len(history["energies"]),
+            "wall_time": time.perf_counter() - t0,
+            "mode": "spin",
+        }
+        return self.results["stage1"]
+
     def _ci_seed_basis(self) -> np.ndarray:
         """HF + all singles/doubles as a seed (``use_ci_seeding``)."""
         conn, _ = self.h.connections_np(self.hf_state[None, :])
@@ -300,6 +362,8 @@ class FlowGuidedKrylovPipeline:
         if self.trainer is None or self.trainer.accumulated_basis is None:
             raise RuntimeError("run train_flow_nqs first")
         accumulated = self.trainer.accumulated_basis
+        if not self.is_molecular:
+            return self._select_basis_spin(accumulated)
 
         occ = unpack_np(accumulated, self.h.n_orbitals)
         audit = verify_particle_conservation(
@@ -335,6 +399,35 @@ class FlowGuidedKrylovPipeline:
             "nf_energy": e_nf,
             "selection_stats": stats,
             "audit": audit,
+        }
+        if c.verbose:
+            err = (f"  err={1000 * (e_nf - self.exact_energy):+.3f} mHa"
+                   if self.exact_energy is not None else "")
+            print(f"  selected {len(selected)} configs, E={e_nf:.6f}{err}")
+        return self.results["stage2"]
+
+    def _select_basis_spin(self, accumulated: np.ndarray) -> Dict:
+        """Spin stage 2: the ``max_diverse_configs`` configurations of
+        largest NQS |psi|^2 (spins have no excitation ranks), plus the
+        reference state."""
+        c = self.config
+        shifts = np.arange(self.h.n_sites, dtype=np.uint32)
+        occ = ((accumulated[:, 0:1] >> shifts) & 1).astype(np.float32)
+        with torch.no_grad():
+            la = self.trainer.nqs(torch.as_tensor(
+                occ, device=self.device)).cpu().numpy()
+        if len(accumulated) > c.max_diverse_configs:
+            keep = np.sort(np.argsort(-la)[:c.max_diverse_configs])
+            selected = accumulated[keep]
+        else:
+            selected = accumulated
+        if self.hf_state[0] not in selected[:, 0]:
+            selected = np.concatenate([self.hf_state[None, :], selected])
+        self.nf_basis = selected
+        e_nf = float(self.h.exact_ground_state(selected, k=1)[0][0])
+        self.results["stage2"] = {
+            "nf_basis_size": int(len(selected)), "nf_energy": e_nf,
+            "selection_stats": {"mode": "top_psi2"}, "audit": {"spin": True},
         }
         if c.verbose:
             err = (f"  err={1000 * (e_nf - self.exact_energy):+.3f} mHa"
@@ -423,6 +516,11 @@ class FlowGuidedKrylovPipeline:
     def _supported_evolution_dim(self) -> int:
         return supported_evolution_dim(self.h)
 
+    def _statevector_sites_cap(self) -> int:
+        """Most spins whose 2^n statevector the Trotter propagator holds
+        on this device."""
+        return MemoryBudget.for_device(self.device).statevector_sites_cap()
+
     def run_skqd(self) -> Dict:
         c = self.config
         if c.verbose:
@@ -437,7 +535,8 @@ class FlowGuidedKrylovPipeline:
             skip_reason = "config.skip_skqd"
         elif c.max_krylov_dim <= 0:
             skip_reason = "max_krylov_dim <= 0"
-        elif self.n_valid > max(200_000, self._supported_evolution_dim()):
+        elif self.is_molecular and self.n_valid > max(
+                200_000, self._supported_evolution_dim()):
             # Full-space evolution is out of reach: evolve within a
             # restricted subspace, the stage-3 basis plus the strongest
             # PT2-ranked externals, sized to what the routed propagator
@@ -457,6 +556,12 @@ class FlowGuidedKrylovPipeline:
                     print(f"  restricted evolution subspace: "
                           f"{len(restricted_states):,} states "
                           f"(full space {self.n_valid:,})")
+        elif not self.is_molecular and self.h.n_sites > \
+                self._statevector_sites_cap():
+            # spin models evolve in their sector or as a full 2^n
+            # statevector (Trotter); the ceiling is memory-derived
+            skip_reason = (f"statevector too large for Trotter SKQD "
+                           f"(2^{self.h.n_sites} amplitudes)")
         elif (self.exact_energy is not None and residual_energy is not None
               and residual_energy - self.exact_energy < 1.0 * MHA):
             skip_reason = "residual already < 1 mHa"

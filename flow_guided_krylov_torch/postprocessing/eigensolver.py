@@ -357,7 +357,9 @@ def _build_fullspace_ell_device(ham) -> Tuple[torch.Tensor, torch.Tensor,
 def _fullspace_cache_path(ham):
     """Disk-cache location for the full-space ground energy, keyed by the
     Hamiltonian content (as ``SampleBasedKrylovDiagonalization.
-    _oracle_cache_path``; the JAX package's hash and directory)."""
+    _oracle_cache_path``; the JAX package's hash and directory).  The
+    ``torch_`` prefix keeps the port's oracle apart from the JAX
+    package's file of the same hash in the same directory."""
     import hashlib
     import os
     from pathlib import Path
@@ -372,7 +374,7 @@ def _fullspace_cache_path(ham):
     root = Path(os.environ.get(
         "FGK_INTEGRAL_CACHE",
         Path.home() / ".cache" / "fgk_tpu_integrals"))
-    return root / f"fullspace_{hsh.hexdigest()}.txt"
+    return root / f"torch_fullspace_{hsh.hexdigest()}.txt"
 
 
 def exact_fullspace_ground_state(ham, m: int = 120, refine_host: bool = True,

@@ -162,9 +162,13 @@ def test_fullspace_route_follows_memory(spin, monkeypatch):
 
 def test_fullspace_cache_path_is_the_jax_package_s(spin, tmp_path,
                                                    monkeypatch):
+    """The JAX package's hash and directory, under the port's own name, so
+    neither package reads the other's oracle."""
     monkeypatch.setenv("FGK_INTEGRAL_CACHE", str(tmp_path))
     jh, h, _, _ = spin
-    assert eig._fullspace_cache_path(h) == jeig._fullspace_cache_path(jh)
+    path, jpath = eig._fullspace_cache_path(h), jeig._fullspace_cache_path(jh)
+    assert path.parent == jpath.parent == tmp_path
+    assert path.name == "torch_" + jpath.name
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +203,14 @@ def test_exact_subspace_energy_disk_cache(tmp_path, monkeypatch):
     assert path.exists()
     assert s.exact_subspace_energy() == e1       # cache hit round-trips
     assert _sector_skqd(8, jz=0.5)._oracle_cache_path() != path
-    # the JAX package's file name for the same Hamiltonian and sector
+    # the JAX package's hash and directory for the same Hamiltonian and
+    # sector, under the port's own name
     jh = jspin.HeisenbergHamiltonian(8, 1.0, 1.0, 1.0,
                                      h_z=np.array([0.1] + [0.0] * 7))
     js = jskqd.SampleBasedKrylovDiagonalization(
         jh, jskqd.SKQDConfig(), initial_state=s.initial_state)
-    assert js._oracle_cache_path() == path
+    jpath = js._oracle_cache_path()
+    assert path.parent == jpath.parent and path.name == "torch_" + jpath.name
 
 
 def test_exact_subspace_energy_raises_on_device_failure(tmp_path,

@@ -505,3 +505,60 @@ def test_pt2_correction_on_card_is_reproducible(lih_cuda):
     blk = krylov.SelectedCIExpander(h)
     blk._pt2_row_cap = 16                     # blocks of 64 rows stay one
     assert blk.pt2_correction(sci["basis"], coeffs, e) == a
+
+
+# ---------------------------------------------------------------------------
+# The device PT2 scorer and the spin pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model", ["heisenberg16", "lih"])
+def test_pt2_scorer_on_card_is_reproducible(card, model):
+    """Two device scorings of one basis agree bit for bit (stable sort and
+    segment_reduce, no float atomics), and rank the host scorer's
+    candidates: one-word spin words and two-word determinants."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    if model == "lih":
+        h = create_lih_hamiltonian("cuda")
+        start = h.get_hf_state()[None, :]
+    else:
+        h = HeisenbergHamiltonian(16, 1.0, 1.0, 1.0,
+                                  h_z=np.array([0.1] + [0.0] * 15),
+                                  device="cuda")
+        start = np.array([[sum(1 << i for i in range(0, 16, 2))]], np.uint32)
+    cfg = krylov.ResidualExpansionConfig(configs_per_iteration=40,
+                                         max_iterations=3,
+                                         max_basis_size=2000)
+    basis = krylov.iterative_residual_expansion(h, start, cfg)["basis"]
+    dev = krylov.SelectedCIExpander(h, cfg, use_device_scoring=True)
+    host = krylov.SelectedCIExpander(h, cfg, use_device_scoring=False)
+    e, coeffs = host._diagonalize(basis)
+    a = dev._pt2_topk_device(basis, coeffs)
+    b = dev._pt2_topk_device(basis, coeffs)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    cand_d, sc_d = dev._pt2_candidates(basis, coeffs, e)
+    cand_h, sc_h = host._pt2_candidates(basis, coeffs, e)
+    assert np.array_equal(h.keys(cand_d), h.keys(cand_h))
+    np.testing.assert_allclose(sc_d, sc_h, rtol=1e-4, atol=1e-12)
+
+
+def test_spin_pipeline_on_card(card):
+    """The spin pipeline on the card: Heisenberg-12 through the S_z flow
+    and its sector, stage 1 on the card, every energy variational."""
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    h = HeisenbergHamiltonian(12, 1.0, 1.0, 1.0,
+                              h_z=np.array([0.1] + [0.0] * 11),
+                              device="cuda")
+    e_exact = float(np.linalg.eigvalsh(h.exact_dense())[0])
+    pipe = FlowGuidedKrylovPipeline(h, PipelineConfig(
+        max_epochs=40, min_epochs=10, samples_per_batch=256,
+        nqs_hidden_dims=[64, 64], max_krylov_dim=3, shots_per_krylov=5000,
+        verbose=False), exact_energy=e_exact)
+    out = pipe.run()
+    assert next(pipe.trainer.nqs.parameters()).is_cuda
+    assert type(pipe.flow).__name__ == "SzConservingFlow"
+    for key in ("nf_energy", "residual_energy", "final_energy"):
+        assert out[key] >= e_exact - 1e-9, key
+    assert abs(out["error_mha"]) < 1.6

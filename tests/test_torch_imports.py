@@ -42,6 +42,7 @@ def test_the_walk_sees_the_port():
     for part in (("chem", "scf.py"), ("pipeline.py",), ("models", "dense.py"),
                  ("flows", "particle_conserving.py"),
                  ("flows", "physics_guided_training.py"),
+                 ("flows", "discrete.py"), ("flows", "spin_training.py"),
                  ("postprocessing", "diversity_selection.py"),
                  ("utils", "profiling.py"), ("utils", "system_scaler.py")):
         assert os.path.join("flow_guided_krylov_torch", *part) in names

@@ -153,11 +153,14 @@ def test_unported_options_raise(field, value):
 
 
 def test_unported_branches_raise():
+    from flow_guided_krylov_torch.flows import DiscreteFlowSampler
     from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
-    with pytest.raises(NotImplementedError, match="spin"):
-        ppipe.FlowGuidedKrylovPipeline(
-            TransverseFieldIsing(6, h=0.5, device="cpu"),
-            ppipe.PipelineConfig(verbose=False))
+    # spin Hamiltonians are ported: TFIM builds with the discrete flow
+    tfim = ppipe.FlowGuidedKrylovPipeline(
+        TransverseFieldIsing(6, h=0.5, device="cpu"),
+        ppipe.PipelineConfig(verbose=False))
+    assert isinstance(tfim.flow, DiscreteFlowSampler)
+    assert tfim.n_valid == 64 and not tfim.is_molecular
     h = pmol.create_h2_hamiltonian("cpu")
     with pytest.raises(NotImplementedError, match="resume"):
         ppipe.FlowGuidedKrylovPipeline(
