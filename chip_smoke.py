@@ -78,7 +78,16 @@ statevector):
    ``exact_fullspace_ground_state`` on the periodic TFIM chain (h = 1) at
    20 sites (host-refined) and 24 sites (device only) against the
    free-fermion energy, with the table-free ``flip-stepped`` route forced
-   once at 20 sites; the ELL kernel at the 24-site identity tables.
+   once at 20 sites; the ELL kernel at the 24-site identity tables;
+12. multiword configurations (``phase_multiword``): O3/cc-pVDZ, the whole
+   post-core space (18e, 39o; two words a spin channel, C = 104,760), HF
+   and two Selected-CI rounds from HF at 3,000 a round (round 1 scored on
+   the card, 314 M candidates) held to the JAX package's records, and the
+   exact dE2 through the multiword blocks against the host f64 path; the
+   open Heisenberg chain at 32 sites (two words a state, S_z = 0: 601 M
+   states), four rounds from the Neel state held to the record and
+   printed beside its DMRG energy, the device scorer against the host's
+   and twice bit for bit, the device dE2 against the host's.
 
 Kernel times are medians over CUDA-event windows: ``ms`` of one launch a
 window (the host's launch gap included), ``device_ms`` of launches back to
@@ -151,6 +160,28 @@ SPIN_PIPE = {
     "tfim": {"sites": 24, "epochs": 200, "min_epochs": 100,
              "sci_rounds": 10, "krylov_dim": 6}}
 SPIN_PIPE_SHOTS, SPIN_PIPE_SAMPLES, SPIN_PIPE_KRYLOV = 100_000, 2048, 12
+# O3/cc-pVDZ (18e, 39o): HF and CCSD(T) (results/ccsd_ozone_full_r5.txt),
+# connections a determinant, and the Selected-CI trajectory from HF at
+# 3,000 a round: (basis, energy, tolerance).  Round 0 (host scoring) is the
+# JAX record (results/ozone_ccpvdz_full_sci_r5_attempt1.txt).  Round 1 is
+# scored on the card; the JAX record's −224.76452644 came from its TPU's
+# approximate top-k (approx_max_k), and the port's exact top K selects a
+# set 0.293 mHa lower, which is held here to 1e-6 and never above the JAX
+# record (``o3_selection_witness`` on an H100 80GB: 1,024-row blocks
+# −224.76478919, the port's 2,048-row blocks −224.76481931, one block
+# with complete couplings −224.76483041)
+O3_DZ = {"hf": -224.2633390741484, "hf_tol": 1e-7, "C": 104_760,
+         "ccsd_t": -224.90963328894682, "jax_round1": -224.76452644,
+         "rounds": [(3_001, -224.69887848, 1e-6),
+                    (6_001, -224.76481931, 1e-6)]}
+# Heisenberg-32 (open, h_z[0] = 0.1, S_z = 0; 601,080,390 states): the JAX
+# Selected-CI trajectory from the Neel state at 3,000 a round and the DMRG
+# oracle (results/val_heisenberg32_sci.txt)
+HEIS32 = {"dmrg": -14.001670895006397,
+          "rounds": [(32, -10.04579574, 1e-6), (467, -11.39011130, 1e-6),
+                     (3_467, -12.13906189, 1e-6),
+                     (6_467, -12.37390176, 1e-6)]}
+DE2_TOL = 1e-8                    # the device dE2 against the host f64 path
 EIGENSOLVER_TOL = 1e-3            # float32 device Lanczos against f64
 REFINED_TOL = 1e-8                # host-refined against the closed form
 SEEDED_ROWS = 250_000             # a basis above the seeded-eigsh threshold
@@ -1833,6 +1864,314 @@ def phase_eigensolvers(fci, fci_s, device="cuda", rehearsal=False):
     return {"launches": launches, "rows": rows}
 
 
+def ozone_ccpvdz_full(device):
+    """O3/cc-pVDZ, the whole post-core space (18e, 39o): the three O 1s
+    cores frozen, 39 active orbitals, two words a spin channel; geometry
+    and window of ``examples/large_system_benchmark.py::ozone_ccpvdz_full``."""
+    import numpy as np
+    from flow_guided_krylov_torch.chem import (
+        compute_active_space_integrals, compute_molecular_integrals)
+    from flow_guided_krylov_torch.hamiltonians import MolecularHamiltonian
+    ang = np.radians(116.8 / 2)
+    r = 1.278
+    geom = [("O", (0.0, 0.0, 0.0)),
+            ("O", (r * np.sin(ang), r * np.cos(ang), 0.0)),
+            ("O", (-r * np.sin(ang), r * np.cos(ang), 0.0))]
+    ints = compute_molecular_integrals(geom, basis="cc-pvdz")
+    return MolecularHamiltonian(
+        compute_active_space_integrals(ints, n_frozen=3, n_active=39),
+        device)
+
+
+@contextlib.contextmanager
+def _round_walls(rounds):
+    """Record each ``SelectedCIExpander.expand_basis`` call of the block:
+    basis size, energy, and the walls of its scoring, projected-H build
+    and eigensolve (deltas of the expander's ``timings``), and whether the
+    device scored it."""
+    from unittest import mock
+    from flow_guided_krylov_torch.krylov.residual_expansion import \
+        SelectedCIExpander
+    expand, topk = (SelectedCIExpander.expand_basis,
+                    SelectedCIExpander._pt2_topk_device)
+    device_calls = []
+
+    def counted_topk(self, src, src_c):
+        device_calls.append(len(src))
+        return topk(self, src, src_c)
+
+    def timed(self, basis, n_add=None):
+        before, n_dev = dict(self.timings), len(device_calls)
+        t0 = time.perf_counter()
+        out = expand(self, basis, n_add)
+        t = {k: self.timings[k] - before[k] for k in before}
+        rounds.append({"basis": int(len(out["basis"])),
+                       "energy": float(out["energy"]),
+                       "accepted": bool(out["accepted"]),
+                       "score_s": t["score"], "h_build_s": t["diag_build"],
+                       "eigensolve_s": t["diag"] - t["diag_build"],
+                       "round_s": time.perf_counter() - t0,
+                       "device_scored": len(device_calls) > n_dev})
+        return out
+
+    with mock.patch.object(SelectedCIExpander, "expand_basis", timed), \
+            mock.patch.object(SelectedCIExpander, "_pt2_topk_device",
+                              counted_topk):
+        yield
+
+
+def _run_rounds(h, start, cfg):
+    """``iterative_residual_expansion`` from ``start`` with the per-round
+    record of :func:`_round_walls`."""
+    from flow_guided_krylov_torch.krylov import iterative_residual_expansion
+    rounds = []
+    with _round_walls(rounds):
+        out = iterative_residual_expansion(h, start, cfg)
+    return out, rounds
+
+
+def _check_rounds(name, rounds, record, floor):
+    """Round r: the record's basis size, its energy to its tolerance, each
+    energy below the last and above ``floor`` (a variational bound)."""
+    if len(rounds) != len(record):
+        raise RuntimeError(f"{name}: {len(rounds)} rounds, want "
+                           f"{len(record)}: {rounds}")
+    prev = float("inf")
+    for got, (size, energy, tol) in zip(rounds, record):
+        got["record"], got["gap"] = energy, got["energy"] - energy
+        if got["basis"] != size or abs(got["gap"]) > tol:
+            raise RuntimeError(f"{name}: round off the record "
+                               f"({size}, {energy}, {tol}): {got}")
+        if not floor < got["energy"] < prev:
+            raise RuntimeError(f"{name}: {got['energy']} not in "
+                               f"({floor}, {prev})")
+        prev = got["energy"]
+
+
+def phase_multiword(device="cuda", rehearsal=False):
+    """Multiword configurations on the card: O3/cc-pVDZ (18e, 39o), 4-word
+    determinants, two Selected-CI rounds from HF at 3,000 a round (round 1
+    scored on the device, 3,001 x 104,760 candidates) and the exact dE2
+    through the multiword blocks; Heisenberg-32 (open, h_z = 0.1 on site
+    0, S_z = 0), two-word configurations, four rounds from the Neel state,
+    the device scorer against the host's and the device dE2 against the
+    host's.  Each energy is held to its record in ``results/``.
+    ``rehearsal`` runs 100 a round on O3 and 300 on the chain, for a run
+    without a card (round 1 of O3 still scores on the device given)."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import (HeisenbergHamiltonian,
+                                                       pack_spin_state)
+    from flow_guided_krylov_torch.krylov import (ResidualExpansionConfig,
+                                                 SelectedCIExpander)
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    res = {}
+    # ---- O3/cc-pVDZ (18e, 39o) ----------------------------------------
+    t0 = time.perf_counter()
+    h = ozone_ccpvdz_full(device)
+    hf = h.get_hf_state()[None, :]
+    e_hf = float(h.diagonal_np(hf)[0])
+    o3 = {"n_orbitals": h.n_orbitals, "pack_words": h.pack_words,
+          "C": h.n_connections, "hamiltonian_s": time.perf_counter() - t0,
+          "e_hf": e_hf, "e_hf_record": O3_DZ["hf"]}
+    if h.pack_words != 4 or h.n_connections != O3_DZ["C"]:
+        raise RuntimeError(f"O3: not the record's space: {o3}")
+    print("multiword O3: " + json.dumps(o3))
+    if abs(e_hf - O3_DZ["hf"]) > O3_DZ["hf_tol"]:
+        raise RuntimeError(f"O3: HF {e_hf} off {O3_DZ['hf']}")
+    per_round = 100 if rehearsal else 3000
+    # run_sci's config (examples/large_system_benchmark.py:223-237), two
+    # rounds of its 80
+    cfg = ResidualExpansionConfig(
+        max_iterations=2, configs_per_iteration=per_round,
+        growth_factor=0.0, residual_threshold=1e-4,
+        stagnation_threshold=1e-6, stagnation_patience=3,
+        source_screen=0.0, pt2_sort_rows=0,
+        max_basis_size=min(h.n_valid_configs, 50_000))
+    t0 = time.perf_counter()
+    out, rounds = _run_rounds(h, hf, cfg)
+    sync()
+    o3["sci_s"] = time.perf_counter() - t0
+    o3["rounds"] = rounds
+    for r in rounds:
+        print("multiword O3 round: " + json.dumps(r))
+    if [r["device_scored"] for r in rounds] != [False, True]:
+        raise RuntimeError(f"O3: round 0 must score on the host and round "
+                           f"1 on the device: {rounds}")
+    if not rehearsal:
+        _check_rounds("O3", rounds, O3_DZ["rounds"], O3_DZ["ccsd_t"])
+        o3["round1_jax_record_gap"] = (rounds[1]["energy"]
+                                       - O3_DZ["jax_round1"])
+        print(f"multiword O3 round 1 against the JAX record: "
+              f"{o3['round1_jax_record_gap']:+.3e} Ha")
+        if o3["round1_jax_record_gap"] > 1e-5:
+            raise RuntimeError("O3: round 1 above the JAX record")
+
+    # the exact dE2 through the multiword blocks: at the HF basis (one
+    # source, coefficient 1) against the host f64 path, then at the
+    # round-0 basis
+    exp = SelectedCIExpander(h, cfg)
+    coeff1 = np.ones(1)
+    t0 = time.perf_counter()
+    dev = exp.pt2_correction(hf, coeff1, e_hf)
+    sync()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = exp._pt2_correction_host(hf, coeff1, e_hf)
+    o3["de2_hf"] = {"device": dev["de2"], "host": host["de2"],
+                    "n_external_device": dev["n_external"],
+                    "n_external_host": host["n_external"],
+                    "exact": dev["exact"], "device_s": dev_s,
+                    "host_s": time.perf_counter() - t0}
+    print("multiword O3 dE2 at HF: " + json.dumps(o3["de2_hf"]))
+    if (not dev["exact"] or dev["n_external"] != host["n_external"]
+            or abs(dev["de2"] - host["de2"]) > DE2_TOL):
+        raise RuntimeError(f"O3: device dE2 at HF: {o3['de2_hf']}")
+    basis0 = out["basis"][:1 + per_round]
+    e0, c0 = exp._diagonalize(basis0)
+    t0 = time.perf_counter()
+    corr = exp.pt2_correction(basis0, c0, e0)
+    sync()
+    o3["de2_round0"] = {"basis": int(len(basis0)), "e_var": e0,
+                        "de2": corr["de2"],
+                        "n_external": corr["n_external"],
+                        "exact": corr["exact"],
+                        "seconds": time.perf_counter() - t0}
+    print("multiword O3 dE2 at round 0: " + json.dumps(o3["de2_round0"]))
+    if not corr["de2"] < 0.0 or corr["n_external"] <= 0:
+        raise RuntimeError(f"O3: dE2 at round 0: {o3['de2_round0']}")
+    res["o3"] = o3
+    del h, exp, out
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- Heisenberg-32 -------------------------------------------------
+    n = 32
+    hz = np.zeros(n)
+    hz[0] = 0.1
+    h = HeisenbergHamiltonian(n, 1.0, 1.0, 1.0, h_z=hz, device=device)
+    neel = pack_spin_state(sum(1 << i for i in range(0, n, 2)), n)[None, :]
+    per_round = 300 if rehearsal else 3000
+    # run_large_spin_sci's config (examples/skqd_lattice_validation.py:
+    # 506-512) as the record ran it: 3,000 a round, growth 0.15, 1.5M cap;
+    # four rounds of its 41
+    cfg = ResidualExpansionConfig(
+        max_iterations=4, configs_per_iteration=per_round,
+        growth_factor=0.15, residual_threshold=1e-4,
+        stagnation_threshold=1e-6, stagnation_patience=3,
+        max_basis_size=1_500_000)
+    t0 = time.perf_counter()
+    out, rounds = _run_rounds(h, neel, cfg)
+    heis = {"pack_words": h.pack_words, "sci_s": time.perf_counter() - t0,
+            "rounds": rounds, "dmrg_record": HEIS32["dmrg"]}
+    for r in rounds:
+        r["dmrg_gap_mha"] = 1e3 * (r["energy"] - HEIS32["dmrg"])
+        print("multiword Heisenberg-32 round: " + json.dumps(r))
+    if h.pack_words != 2:
+        raise RuntimeError("Heisenberg-32 is not two words a state")
+    if not rehearsal:
+        _check_rounds("Heisenberg-32", rounds, HEIS32["rounds"],
+                      HEIS32["dmrg"])
+    basis = out["basis"]
+    host_x = SelectedCIExpander(h, cfg, use_device_scoring=False)
+    e, coeffs = host_x._diagonalize(basis)
+    t0 = time.perf_counter()
+    cand_h, sc_h = host_x._pt2_candidates(basis, coeffs, e)
+    host_s = time.perf_counter() - t0
+    dev_x = SelectedCIExpander(h, cfg, use_device_scoring=True)
+    sig = np.abs(coeffs) > cfg.coefficient_threshold
+    got = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        got.append(dev_x._pt2_topk_device(basis[sig], coeffs[sig]))
+        sync()
+    dev_s = (time.perf_counter() - t0) / 2
+    cand_d, sc_d = dev_x._pt2_candidates(basis, coeffs, e)
+    top = min(len(sc_h), 4 * per_round)
+    rank_h = h.keys(cand_h[np.argsort(-sc_h, kind="stable")[:top]])
+    rank_d = h.keys(cand_d[np.argsort(-sc_d, kind="stable")[:top]])
+    heis["pt2_scorer"] = {
+        "basis": int(len(basis)), "candidates_host": int(len(cand_h)),
+        "candidates_device": int(len(cand_d)), "host_s": host_s,
+        "device_block_s": dev_s,
+        "top_overlap": len(np.intersect1d(rank_h, rank_d)) / top,
+        "bit_equal": bool(np.array_equal(got[0][0], got[1][0])
+                          and np.array_equal(got[0][1], got[1][1]))}
+    print("multiword Heisenberg-32 pt2 scorer: "
+          + json.dumps(heis["pt2_scorer"]))
+    if not heis["pt2_scorer"]["bit_equal"]:
+        raise RuntimeError("Heisenberg-32: two device scorings differ")
+    if heis["pt2_scorer"]["top_overlap"] < 0.99:
+        raise RuntimeError(f"Heisenberg-32: device and host rankings: "
+                           f"{heis['pt2_scorer']}")
+    t0 = time.perf_counter()
+    dev = dev_x.pt2_correction(basis, coeffs, e)
+    sync()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = dev_x._pt2_correction_host(basis, coeffs, e)
+    heis["de2"] = {"basis": int(len(basis)), "device": dev["de2"],
+                   "host": host["de2"], "exact": dev["exact"],
+                   "n_external_device": dev["n_external"],
+                   "n_external_host": host["n_external"],
+                   "device_s": dev_s, "host_s": time.perf_counter() - t0,
+                   "corrected_gap_mha": 1e3 * (e + host["de2"]
+                                               - HEIS32["dmrg"])}
+    print("multiword Heisenberg-32 dE2: " + json.dumps(heis["de2"]))
+    if not dev["exact"] or abs(dev["de2"] - host["de2"]) > DE2_TOL:
+        raise RuntimeError(f"Heisenberg-32: device dE2: {heis['de2']}")
+    res["heisenberg32"] = heis
+    return res
+
+
+def o3_selection_witness(device="cuda", per_round=3000):
+    """Not part of the smoke: round 1 of O3/cc-pVDZ (18e, 39o) selected
+    from one round-0 basis with the device scorer cut into blocks of
+    1,024 rows (the JAX run's block on its card), of 2,048 (the port's at
+    80 GB), and of all 3,001 rows with a top K of 2,000,000 (complete
+    couplings: the reference selection), each block's top K exact.
+    Prints the energy of each selection and how many of its added
+    determinants the reference shares: a block's top K drops a key's
+    partial couplings outside it, so the selection depends on the
+    blocks."""
+    import dataclasses
+    import numpy as np
+    from flow_guided_krylov_torch.krylov import (ResidualExpansionConfig,
+                                                 SelectedCIExpander)
+    h = ozone_ccpvdz_full(device)
+    hf = h.get_hf_state()[None, :]
+    cfg = ResidualExpansionConfig(
+        max_iterations=2, configs_per_iteration=per_round,
+        residual_threshold=1e-4, stagnation_threshold=1e-6,
+        stagnation_patience=3, max_basis_size=min(h.n_valid_configs, 50_000))
+    basis0 = SelectedCIExpander(h, cfg).expand_basis(hf)["basis"]
+    out = {}
+    for name, rows, k in (("blocks_1024", 1024, None),
+                          ("blocks_2048", 2048, None),
+                          ("one_block_top_2M", 4096, 2_000_000)):
+        c = (dataclasses.replace(cfg, max_basis_size=k - 16 * per_round)
+             if k else cfg)
+        exp = SelectedCIExpander(h, c, use_device_scoring=True)
+        exp._pt2_row_cap = rows
+        t0 = time.perf_counter()
+        r = exp.expand_basis(basis0, n_add=per_round)
+        out[name] = {"energy": r["energy"], "basis": int(len(r["basis"])),
+                     "seconds": time.perf_counter() - t0,
+                     "added": h.keys(r["basis"][len(basis0):])}
+    ref = out["one_block_top_2M"]["added"]
+    for name, o in out.items():
+        o["shared_with_exact"] = int(len(np.intersect1d(o.pop("added"),
+                                                        ref)))
+        o["record_gap"] = o["energy"] - O3_DZ["rounds"][1][1]
+        print(f"o3 selection {name}: " + json.dumps(o))
+    return out
+
+
 def main():
     os.environ.setdefault("FGK_INTEGRAL_CACHE",
                           os.path.join(ROOT, ".fgk_cache"))
@@ -1857,6 +2196,7 @@ def main():
     restricted = phase_restricted()
     spin_pipe = phase_spin_pipeline()
     eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
+    phase_multiword()
     rows += sector["rows"] + restricted["rows"] + eigen["rows"]
     by_path = {"n2_stage4": n2["launches"], "sector": sector["launches"],
                "heisenberg24_pipeline":

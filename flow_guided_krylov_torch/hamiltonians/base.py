@@ -2,8 +2,9 @@
 
 Counterpart of the host methods of
 ``flow_guided_krylov_tpu/hamiltonians/base.py::Hamiltonian``.
-Configurations are packed uint32 words (``pack_words`` per configuration;
-2 for molecular alpha/beta, 1 for spins), and every configuration has exactly
+Configurations are packed uint32 words (``pack_words`` per configuration:
+2 for molecular alpha/beta up to 32 orbitals and 4 above, 1 for spins up
+to 31 sites and 2 above), and every configuration has exactly
 ``n_connections`` connections.
 """
 
@@ -18,9 +19,20 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..ops.bits import keys_device
+from ..ops.bits import _SIGN_FLIP, join2, keys_device, split2, unkey_device
 
-__all__ = ["Hamiltonian"]
+__all__ = ["Hamiltonian", "lex_order"]
+
+
+def lex_order(keys: torch.Tensor) -> torch.Tensor:
+    """Stable ascending order of (R,) int64 keys, or of (R, 2) key pairs
+    lexicographically (first column, then second): a stable sort on the
+    second column, then a stable sort on the first.  Equal keys keep their
+    input order either way, as ``jax.lax.sort(num_keys=W)`` keeps them."""
+    if keys.dim() == 1:
+        return torch.sort(keys, stable=True).indices
+    order = torch.sort(keys[:, 1], stable=True).indices
+    return order[torch.sort(keys[order, 0], stable=True).indices]
 
 
 class Hamiltonian(ABC):
@@ -28,7 +40,8 @@ class Hamiltonian(ABC):
 
     * ``n_sites`` — number of qubits.
     * ``pack_words`` — uint32 words per configuration (2: alpha, beta;
-      1: a spin configuration of up to 31 sites).
+      4: two words a channel past 32 orbitals; 1: a spin configuration of
+      up to 31 sites; 2: [hi, lo] from 32 to 64 sites).
     * ``n_connections`` — static per-config connection count.
     * ``diagonal_np(packed)`` — host f64 diagonal elements.
     * ``connections_np(packed)`` — host f64 ((B,C,W) targets, (B,C) elems).
@@ -55,9 +68,16 @@ class Hamiltonian(ABC):
     # Key encoding (host)
     # ------------------------------------------------------------------
 
+    # 128-bit host key of a 4-word row: compares field by field, i.e. in
+    # (alpha, beta) numeric order; np.sort / argsort / searchsorted / ==
+    # take structured dtypes, so every key consumer works unchanged
+    KEY128 = np.dtype([("a", "<u8"), ("b", "<u8")])
+
     def keys(self, packed: np.ndarray) -> np.ndarray:
-        """(B, W) uint32 -> (B,) uint64 sort/dedup keys: the word itself
-        at W = 1 (spin configurations), (alpha << 32) | beta at W = 2."""
+        """(B, W) uint32 -> (B,) sort/dedup keys: the word itself at
+        W = 1 (spin configurations), (w0 << 32) | w1 as uint64 at W = 2,
+        and at W = 4 (``[a_hi, a_lo, b_hi, b_lo]``) a ``KEY128`` record
+        of the two 64-bit channels."""
         packed = np.asarray(packed)
         if self.pack_words == 1:
             # a 1-D array is a batch of one-word rows, as in the JAX base
@@ -66,34 +86,61 @@ class Hamiltonian(ABC):
         if sys.byteorder != "little":
             raise RuntimeError("packed-key uint64 views assume a "
                                "little-endian host")
-        # (alpha << 32) | beta: write [beta, alpha] uint32 pairs and view
-        # them as little-endian uint64 (NumPy's uint64 shifts are slow)
+        # write the words low half first and view them as little-endian
+        # uint64 (NumPy's uint64 shifts are slow)
         flat = packed.reshape(-1, packed.shape[-1])
+        if self.pack_words == 4:
+            kk = np.empty((flat.shape[0], 4), np.uint32)
+            kk[:, 0] = flat[:, 1]    # alpha low
+            kk[:, 1] = flat[:, 0]    # alpha high
+            kk[:, 2] = flat[:, 3]    # beta low
+            kk[:, 3] = flat[:, 2]    # beta high
+            return kk.view(self.KEY128)[:, 0].reshape(packed.shape[:-1])
         kk = np.empty((flat.shape[0], 2), np.uint32)
-        kk[:, 0] = flat[:, 1]        # low word: beta
-        kk[:, 1] = flat[:, 0]        # high word: alpha
+        kk[:, 0] = flat[:, 1]        # low word
+        kk[:, 1] = flat[:, 0]        # high word
         return kk.view(np.uint64)[:, 0].reshape(packed.shape[:-1])
 
     def keys_device(self, packed: torch.Tensor) -> torch.Tensor:
-        """(..., W) int64 device words -> (...) int64 sort/search keys
-        that order like :meth:`keys`: the word itself at W = 1 (below
+        """(..., W) int64 device words -> int64 sort/search keys that
+        order like :meth:`keys`: (...) the word itself at W = 1 (below
         2^31, so signed order is unsigned order), ``ops.bits.keys_device``
-        at W = 2."""
+        at W = 2; at W = 4 a (..., 2) pair (alpha, beta) of 64-bit
+        channels, each with its top bit flipped.  A pair orders
+        lexicographically (:func:`lex_order`)."""
         if self.pack_words == 1:
             return packed[..., 0]
+        if self.pack_words == 4:
+            return torch.stack([join2(packed[..., 0:2]),
+                                join2(packed[..., 2:4])], -1) ^ _SIGN_FLIP
         return keys_device(packed)
 
+    def unkey_device(self, keys: torch.Tensor) -> torch.Tensor:
+        """Device keys of :meth:`keys_device` -> (..., W) int64 words."""
+        if self.pack_words == 1:
+            return keys[..., None]
+        if self.pack_words == 4:
+            return split2(keys ^ _SIGN_FLIP).flatten(-2)
+        return unkey_device(keys)
+
     def keys_to_host(self, keys: torch.Tensor) -> np.ndarray:
-        """Device keys of :meth:`keys_device` -> the host uint64 keys of
+        """Device keys of :meth:`keys_device` -> the host keys of
         :meth:`keys` (``unkey`` then gives the packed rows)."""
         k = keys.cpu().numpy()
         if self.pack_words == 1:
             return k.astype(np.uint64)
-        return k.view(np.uint64) ^ np.uint64(1 << 63)
+        u = k.view(np.uint64) ^ np.uint64(1 << 63)
+        if self.pack_words == 4:
+            return np.ascontiguousarray(u).view(self.KEY128)[:, 0]
+        return u
 
     def unkey(self, keys: np.ndarray) -> np.ndarray:
-        """(B,) uint64 keys -> (B, W) uint32 packed rows (inverse of
+        """(B,) keys -> (B, W) uint32 packed rows (inverse of
         :meth:`keys`)."""
+        if self.pack_words == 4:
+            w = np.asarray(keys, dtype=self.KEY128).reshape(-1, 1
+                                                            ).view(np.uint32)
+            return np.stack([w[:, 1], w[:, 0], w[:, 3], w[:, 2]], axis=-1)
         keys = np.asarray(keys, dtype=np.uint64)
         if self.pack_words == 1:
             return keys.astype(np.uint32)[:, None]

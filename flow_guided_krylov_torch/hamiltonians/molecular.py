@@ -1,10 +1,13 @@
 """Molecular Hamiltonian over packed determinants.
 
-Counterpart of ``flow_guided_krylov_tpu/hamiltonians/molecular.py`` for
-n_orb <= 32.  Alpha orbitals sit on Jordan-Wigner qubits 0..n-1, beta on
-n..2n-1.  Host integrals come from the port's own ``chem`` (NumPy and the
-shared C++ ERI engine).  Device compute runs on ``device``, which
-the caller names; every downstream consumer uses this device.
+Counterpart of ``flow_guided_krylov_tpu/hamiltonians/molecular.py``.
+Alpha orbitals sit on Jordan-Wigner qubits 0..n-1, beta on n..2n-1.  Up to
+32 orbitals a determinant is a (2,) row of channel words; from 33 to 64
+each channel spans two words, ``[a_hi, a_lo, b_hi, b_lo]`` (``pack_words``
+4, 128-bit host keys).  Host integrals come from the port's own ``chem``
+(NumPy and the shared C++ ERI engine).  Device compute runs on
+``device``, which the caller names; every downstream consumer uses this
+device.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from ..chem import MolecularIntegrals, compute_molecular_integrals
 from ..ops.slater import (SlaterTables, build_tables, connections_batch_np,
                           diagonal_batch, diagonal_batch_np,
-                          make_connection_fn)
+                          make_connection_fn_auto)
 from .base import Hamiltonian
 
 __all__ = [
@@ -44,6 +47,8 @@ class MolecularHamiltonian(Hamiltonian):
         self.n_alpha = integrals.n_alpha
         self.n_beta = integrals.n_beta
         self.n_electrons = integrals.n_electrons
+        # 33..64 orbitals span two uint32 words per spin channel
+        self.pack_words = 4 if self.n_orbitals > 32 else 2
         self.n_sites = 2 * self.n_orbitals  # qubits
         self.n_qubits = self.n_sites
         self.tables: SlaterTables = build_tables(
@@ -70,7 +75,7 @@ class MolecularHamiltonian(Hamiltonian):
 
     def enumerate_basis(self) -> np.ndarray:
         """All C(n,na)*C(n,nb) particle-conserving determinants,
-        (B, 2) uint32."""
+        (B, pack_words) uint32."""
         n = self.n_orbitals
         if self.n_valid_configs > 200_000_000:
             raise NotImplementedError(
@@ -80,7 +85,12 @@ class MolecularHamiltonian(Hamiltonian):
         def channel_words(k):
             ints = [sum(1 << i for i in c)
                     for c in combinations(range(n), k)]
-            return np.array(ints, dtype=np.uint32)[:, None]
+            if n <= 32:
+                return np.array(ints, dtype=np.uint32)[:, None]
+            arr = np.array(ints, dtype=np.uint64)
+            return np.stack([(arr >> np.uint64(32)).astype(np.uint32),
+                             (arr & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                            axis=-1)                 # [hi, lo]
 
         alphas = channel_words(self.n_alpha)
         betas = channel_words(self.n_beta)
@@ -89,8 +99,15 @@ class MolecularHamiltonian(Hamiltonian):
         return np.concatenate([a, b], axis=-1)
 
     def get_hf_state(self) -> np.ndarray:
-        """Aufbau reference determinant, (2,) uint32."""
-        return np.array([(1 << self.n_alpha) - 1, (1 << self.n_beta) - 1],
+        """Aufbau reference determinant, (pack_words,) uint32."""
+
+        def channel(k):
+            bits = (1 << k) - 1
+            if self.n_orbitals <= 32:
+                return [bits]
+            return [bits >> 32, bits & 0xFFFFFFFF]   # [hi, lo]
+
+        return np.array(channel(self.n_alpha) + channel(self.n_beta),
                         dtype=np.uint32)
 
     # ------------------------------------------------------------------
@@ -104,16 +121,19 @@ class MolecularHamiltonian(Hamiltonian):
                        ) -> Tuple[np.ndarray, np.ndarray]:
         return connections_batch_np(np.atleast_2d(packed), self.tables)
 
-    def diagonal_device(self, packed: torch.Tensor) -> torch.Tensor:
-        """(B, 2) int64 words on ``self.device`` -> (B,) float32."""
-        return diagonal_batch(packed, self.tables)
+    def diagonal_device(self, packed: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(B, pack_words) int64 words on ``self.device`` -> (B,) diagonal
+        in ``dtype`` (float64 for the multiword dE2's denominators)."""
+        return diagonal_batch(packed, self.tables, dtype)
 
     @property
     def connections_device(self):
-        """f(packed (B, 2) int64) -> ((B, C, 2) int64, (B, C) float32) on
-        ``self.device`` (see ``ops/slater.py::make_connection_fn``)."""
+        """f(packed (B, W) int64) -> ((B, C, W) int64, (B, C) float32) on
+        ``self.device``, W = ``pack_words`` (see
+        ``ops/slater.py::make_connection_fn_auto``)."""
         if self._conn_fn is None:
-            self._conn_fn = make_connection_fn(self.tables, self.device)
+            self._conn_fn = make_connection_fn_auto(self.tables, self.device)
         return self._conn_fn
 
     # ------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Spin-lattice Hamiltonians over packed bitstrings, single word.
+"""Spin-lattice Hamiltonians over packed bitstrings.
 
-Counterpart of ``flow_guided_krylov_tpu/hamiltonians/spin.py`` for chains
-of up to 31 sites, where a configuration is one uint32 word (site i in
-bit i):
+Counterpart of ``flow_guided_krylov_tpu/hamiltonians/spin.py``.  A
+configuration of up to 31 sites is one uint32 word (site i in bit i); from
+32 to 64 sites it is two, in columns [hi, lo] (sites 0..31 in the low word,
+the last column), so the uint64 host key (hi << 32) | lo orders like the
+integer state:
 
 * :class:`HeisenbergHamiltonian` — XXZ plus fields: diagonal
   Jz/4 * sum_bonds s_i s_j + sum_i h_z/2 s_i; off-diagonal
@@ -18,8 +20,11 @@ is the statevector Trotter propagator in ``krylov/skqd.py``, the device
 closures ``diagonal_device`` / ``connections_device`` (float32 elements
 over int64 words, the source of the sector and full-space ELL tables) and
 the table-free full-space product :meth:`_SpinBase.apply_statevector`.
-The Hamiltonian names the device that work runs on (``device=``).  The
-two-word layout (32..64 sites) is not ported yet.
+The Hamiltonian names the device that work runs on (``device=``).  On the
+device a two-word configuration is one 64-bit channel (``ops/bits.join2``),
+and its int64 key (top bit flipped) is the one-word machinery's, so the
+Selected-CI scorer and the exact dE2 take it unchanged.  The full-2^n
+statevector routes refuse more than 31 sites, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.bits import join2, split2
 from .base import Hamiltonian
 
 __all__ = ["HeisenbergHamiltonian", "TransverseFieldIsing",
@@ -36,49 +42,64 @@ __all__ = ["HeisenbergHamiltonian", "TransverseFieldIsing",
            "extract_coeffs_and_paulis", "pack_spin_state",
            "spin_state_int"]
 
-MAX_SPINS = 31
+MAX_SPINS = 64
 
 
 def _spin_words(n: int) -> int:
-    """uint32 words per configuration: 1 for n <= 31.  The two-word
-    layout of 32..64 sites is not ported yet."""
+    """uint32 words per configuration: 1 for n <= 31, 2 for 32..64."""
     if n > MAX_SPINS:
         raise NotImplementedError(
-            f"{n} spins need the two-word layout, which the port does not "
-            f"have yet (at most {MAX_SPINS} spins)")
-    return 1
+            f"packed 2 x uint32 configurations support <= {MAX_SPINS} spins")
+    return 1 if n <= 31 else 2
 
 
 def pack_spin_state(x: int, n: int) -> np.ndarray:
-    """Python-int spin configuration -> (1,) uint32 packed row."""
-    _spin_words(n)
-    return np.array([x], np.uint32)
+    """Python-int spin configuration -> (W,) uint32 packed row."""
+    if _spin_words(n) == 1:
+        return np.array([x], np.uint32)
+    return np.array([(x >> 32) & 0xFFFFFFFF, x & 0xFFFFFFFF], np.uint32)
 
 
 def spin_state_int(row: np.ndarray) -> int:
-    """(1,) uint32 packed row -> Python-int spin configuration."""
-    return int(np.asarray(row).reshape(-1)[0])
+    """(W,) uint32 packed row -> Python-int spin configuration."""
+    row = np.asarray(row).reshape(-1)
+    if row.shape[0] == 1:
+        return int(row[0])
+    return (int(row[0]) << 32) | int(row[1])
 
 
-def _site_mask(sites: Sequence[int]) -> np.ndarray:
-    """XOR mask (1,) uint32 flipping the given sites."""
-    m = np.zeros(1, np.uint32)
+def _site_mask(sites: Sequence[int], W: int) -> np.ndarray:
+    """XOR mask (W,) uint32 flipping the given sites."""
+    m = np.zeros(W, np.uint32)
     for s in sites:
-        m[0] |= np.uint32(1 << s)
+        col = W - 1 - (s // 32)          # the low word is the last column
+        m[col] |= np.uint32(1 << (s % 32))
     return m
 
 
 def _bit_np(packed: np.ndarray, s: int) -> np.ndarray:
-    """(B, 1) uint32, site index -> (B,) uint32 occupation bit."""
-    return (packed[:, 0] >> np.uint32(s)) & np.uint32(1)
+    """(B, W) uint32, site index -> (B,) uint32 occupation bit."""
+    col = packed.shape[1] - 1 - (s // 32)
+    return (packed[:, col] >> np.uint32(s % 32)) & np.uint32(1)
 
 
 def _spins(packed: np.ndarray, n: int) -> np.ndarray:
-    """(B, 1) packed -> (B, n) {-1,+1} float64."""
+    """(B, W) packed -> (B, n) {-1,+1} float64."""
     packed = np.atleast_2d(packed)
-    shifts = np.arange(n, dtype=np.uint32)
-    bits = (packed[:, 0:1] >> shifts) & 1
+    shifts = np.arange(min(n, 32), dtype=np.uint32)
+    bits = (packed[:, -1:] >> shifts) & 1
+    if n > 32:
+        shifts_hi = np.arange(n - 32, dtype=np.uint32)
+        bits = np.concatenate([bits, (packed[:, 0:1] >> shifts_hi) & 1],
+                              axis=1)
     return 2.0 * bits.astype(np.float64) - 1.0
+
+
+def _full_space_sites(n: int) -> None:
+    """The full-2^n statevector routes hold one word a state."""
+    if n > 31:
+        raise NotImplementedError(
+            "full-2^n statevector routes require n <= 31 spins")
 
 
 def _flip1(v: np.ndarray, i: int, n: int) -> np.ndarray:
@@ -131,6 +152,7 @@ class _SpinBase(Hamiltonian):
 
     def exact_dense(self) -> np.ndarray:
         """Dense H over the full 2^n space (for n <= ~14; test oracle)."""
+        _full_space_sites(self.n_sites)
         states = np.arange(1 << self.n_sites, dtype=np.uint32)[:, None]
         return self.matrix_elements(states, states)
 
@@ -142,12 +164,12 @@ class _SpinBase(Hamiltonian):
         return self._device_ops
 
     def diagonal_device(self, packed: torch.Tensor) -> torch.Tensor:
-        """(B, 1) int64 words on ``self.device`` -> (B,) float32."""
+        """(B, W) int64 words on ``self.device`` -> (B,) float32."""
         return self._ops()[0](packed)
 
     @property
     def connections_device(self):
-        """f(packed (B, 1) int64) -> ((B, C, 1) int64, (B, C) float32) on
+        """f(packed (B, W) int64) -> ((B, C, W) int64, (B, C) float32) on
         ``self.device``; every configuration has the same C flip slots,
         a forbidden flip carrying a zero element."""
         return self._ops()[1]
@@ -160,6 +182,7 @@ class _SpinBase(Hamiltonian):
 
     def full_diagonal_np(self) -> np.ndarray:
         """f64 diagonal over the full 2^n space (chunked, cached)."""
+        _full_space_sites(self.n_sites)
         if self._full_diag_np is None:
             dim = 1 << self.n_sites
             out = np.empty(dim, np.float64)
@@ -175,6 +198,7 @@ class _SpinBase(Hamiltonian):
                              diag: Optional[np.ndarray] = None) -> np.ndarray:
         """H @ v over the full 2^n space, float64, on the host."""
         n = self.n_sites
+        _full_space_sites(n)
         v = np.asarray(v, np.float64).reshape(-1)
         if v.shape[0] != (1 << n):
             raise ValueError(f"expected a full 2^{n} statevector")
@@ -196,6 +220,7 @@ class _SpinBase(Hamiltonian):
         """H @ v over the full 2^n space on ``v``'s device (float32 slab
         bit flips).  ``diag`` is the (2^n,) float32 diagonal
         (``postprocessing.eigensolver.full_diagonal_device``)."""
+        _full_space_sites(self.n_sites)
         return self._apply_offdiag(v, diag * v)
 
     def _apply_offdiag(self, v: torch.Tensor, out: torch.Tensor
@@ -258,19 +283,19 @@ class HeisenbergHamiltonian(_SpinBase):
     def connections_np(self, packed: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
         packed = np.atleast_2d(packed).astype(np.uint32)
-        B = packed.shape[0]
+        B, W = packed.shape
         conns = []
         elems = []
         # bond flips: element (Jx+Jy)/4 when antiparallel, else 0
         for i, j in self.bonds:
             anti = _bit_np(packed, i) != _bit_np(packed, j)
-            conns.append(packed ^ _site_mask((i, j))[None, :])
+            conns.append(packed ^ _site_mask((i, j), W)[None, :])
             elems.append(np.where(anti, (self.Jx + self.Jy) / 4.0, 0.0))
         if self._has_x_field:
             for i in range(self.n_sites):
-                conns.append(packed ^ _site_mask((i,))[None, :])
+                conns.append(packed ^ _site_mask((i,), W)[None, :])
                 elems.append(np.full(B, self.h_x[i] / 2.0))
-        conn = np.stack(conns, axis=1)                  # (B, C, 1)
+        conn = np.stack(conns, axis=1)                  # (B, C, W)
         el = np.stack(elems, axis=1)
         return conn.astype(np.uint32), el
 
@@ -331,9 +356,10 @@ class TransverseFieldIsing(_SpinBase):
     def connections_np(self, packed: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
         packed = np.atleast_2d(packed).astype(np.uint32)
-        conns = [packed ^ _site_mask((i,))[None, :]
+        W = packed.shape[1]
+        conns = [packed ^ _site_mask((i,), W)[None, :]
                  for i in range(self.n_sites)]
-        conn = np.stack(conns, axis=1)                  # (B, C, 1)
+        conn = np.stack(conns, axis=1)                  # (B, C, W)
         el = np.full((packed.shape[0], self.n_sites), -self.h)
         return conn.astype(np.uint32), el
 
@@ -411,24 +437,40 @@ def extract_coeffs_and_paulis(hamiltonian) -> Tuple[List[float], List[str]]:
 # Device closures: static-shape spin connections over int64 words
 # ---------------------------------------------------------------------------
 
+def _signed64(v: int) -> int:
+    """A 64-bit pattern as the int64 value with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
 def _spin_device_ops(ham):
     """(diagonal_fn, connections_fn) in torch for a spin H on
-    ``ham.device``, one word per configuration: per-site bit tests are
-    shifts of the word, flip masks are (C,) int64 tables XORed against the
-    batch.  Elements are float32, words int64 (``ops/bits.py``)."""
+    ``ham.device``.  A configuration's W words become one int64 channel
+    (the word itself at W = 1, ``join2`` at W = 2): per-site bit tests are
+    shifts of it, flip masks are (C,) int64 tables XORed against the
+    batch, and targets are split back into W words.  Elements are
+    float32, words int64 (``ops/bits.py``)."""
     n = ham.n_sites
-    _spin_words(n)
+    W = _spin_words(n)
     dev = ham.device
     shifts = torch.arange(n, dtype=torch.int64, device=dev)
 
+    def channel(packed):
+        """(B, W) int64 words -> (B, 1) int64 channel."""
+        return (packed[:, 0:1] if W == 1 else join2(packed)[:, None])
+
+    def words(chan):
+        """(B, C) int64 channels -> (B, C, W) int64 words."""
+        return chan[..., None] if W == 1 else split2(chan)
+
     def spins_of(packed):
-        """(B, 1) int64 -> (B, n) float32 in {-1, +1}."""
-        bits = (packed[:, 0:1] >> shifts) & 1
+        """(B, W) int64 -> (B, n) float32 in {-1, +1}."""
+        bits = (channel(packed) >> shifts) & 1
         return 2.0 * bits.to(torch.float32) - 1.0
 
     def masks_for(groups):
         """list of site tuples -> (C,) int64 XOR masks."""
-        return torch.tensor([int(_site_mask(g)[0]) for g in groups],
+        return torch.tensor([_signed64(sum(1 << s for s in g))
+                             for g in groups],
                             dtype=torch.int64, device=dev)
 
     flip_masks = masks_for([(i,) for i in range(n)])
@@ -443,7 +485,7 @@ def _spin_device_ops(ham):
             return -V * torch.sum(s[:, edges[:, 0]] * s[:, edges[:, 1]], -1)
 
         def connections(packed):
-            conn = (packed[:, 0:1] ^ flip_masks[None, :])[..., None]
+            conn = words(channel(packed) ^ flip_masks[None, :])
             elems = torch.full((packed.shape[0], n), -hf,
                                dtype=torch.float32, device=packed.device)
             return conn, elems
@@ -467,7 +509,7 @@ def _spin_device_ops(ham):
             return zz + torch.sum(s * (hz / 2.0)[None, :], -1)
 
         def connections(packed):
-            word = packed[:, 0:1]
+            word = channel(packed)
             bi = (word >> bonds[None, :, 0]) & 1
             bj = (word >> bonds[None, :, 1]) & 1
             el_b = (bi != bj).to(torch.float32) * Jxy4
@@ -475,9 +517,9 @@ def _spin_device_ops(ham):
             if has_x:
                 conn_x = word ^ flip_masks[None, :]
                 el_x = (hx / 2.0)[None, :].expand(packed.shape[0], n)
-                return (torch.cat([conn_b, conn_x], 1)[..., None],
+                return (words(torch.cat([conn_b, conn_x], 1)),
                         torch.cat([el_b, el_x], 1))
-            return conn_b[..., None], el_b
+            return words(conn_b), el_b
 
         return diagonal, connections
 

@@ -1,7 +1,7 @@
 """Selected-CI basis expansion with PT2 importance (stage 3).
 
 Counterpart of ``flow_guided_krylov_tpu/krylov/residual_expansion.py``,
-single device and single word per spin channel:
+single device, for every packing of ``hamiltonians/``:
 
 * :class:`SelectedCIExpander` — one round: diagonalize the current basis
   (host float64), accumulate signed couplings <i|H|Phi> = sum_j c_j <i|H|j>
@@ -20,8 +20,12 @@ single device and single word per spin channel:
 
 The host scoring path is the JAX package's NumPy code, so host-scored
 trajectories are identical in both packages.  The device scoring block
-(:meth:`SelectedCIExpander._pt2_topk_device`) and the device block of the
-exact correction run in torch on the Hamiltonian's device.
+(:meth:`SelectedCIExpander._pt2_topk_device`) and the device blocks of the
+exact correction run in torch on the Hamiltonian's device.  Keys are one
+int64 a configuration up to two words (spins up to 64 sites included);
+4-word determinants (33..64 orbitals) key on an (alpha, beta) int64 pair,
+ordered by two stable sorts (``hamiltonians/base.py::lex_order``), and
+on the host on ``KEY128`` records.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..hamiltonians.base import Hamiltonian
+from ..hamiltonians.base import Hamiltonian, lex_order
 from ..ops.bits import to_device
 
 __all__ = ["ResidualExpansionConfig", "SelectedCIExpander",
@@ -44,13 +48,26 @@ __all__ = ["ResidualExpansionConfig", "SelectedCIExpander",
 def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
     """(unique_keys, first_index, inverse|None) of uint64 keys via one
     stable argsort and a grouped cumsum (cheaper than ``np.unique``'s
-    int64-heavy internals)."""
-    order = np.argsort(keys, kind="stable")
-    sk = keys[order]
-    flag = np.empty(len(sk), bool)
-    if len(sk):
-        flag[0] = True
-        np.not_equal(sk[1:], sk[:-1], out=flag[1:])
+    int64-heavy internals).  ``KEY128`` records sort by ``np.lexsort``
+    over their two uint64 halves: NumPy's record comparator costs a call
+    a comparison."""
+    if keys.dtype.kind == "V" and keys.dtype.itemsize == 16:
+        v = keys.view(np.uint64).reshape(-1, 2)       # (alpha, beta)
+        order = np.lexsort((v[:, 1], v[:, 0]))
+        sv = v[order]
+        flag = np.empty(len(keys), bool)
+        if len(keys):
+            flag[0] = True
+            np.not_equal(sv[1:, 0], sv[:-1, 0], out=flag[1:])
+            flag[1:] |= sv[1:, 1] != sv[:-1, 1]
+        sk = keys[order]
+    else:
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        flag = np.empty(len(sk), bool)
+        if len(sk):
+            flag[0] = True
+            np.not_equal(sk[1:], sk[:-1], out=flag[1:])
     uniq = sk[flag]
     first_idx = order[flag]
     inverse = None
@@ -63,14 +80,15 @@ def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
 def _sum_by_key(key: torch.Tensor, contrib: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(unique keys ascending, the signed sum of ``contrib`` over each) of
-    (R,) int64 keys.  The sort is stable and ``torch.segment_reduce`` adds
-    each run's terms in their sorted order in one thread, so two calls
-    give the same bits on a card (``index_add_`` adds with float atomics
-    in no fixed order)."""
-    key, order = torch.sort(key, stable=True)
-    contrib = contrib[order]
-    first = torch.ones_like(key, dtype=torch.bool)
-    first[1:] = key[1:] != key[:-1]
+    (R,) int64 keys or (R, 2) key pairs (lexicographic order).  The sorts
+    are stable and ``torch.segment_reduce`` adds each run's terms in their
+    sorted order in one thread, so two calls give the same bits on a card
+    (``index_add_`` adds with float atomics in no fixed order)."""
+    order = lex_order(key)
+    key, contrib = key[order], contrib[order]
+    first = torch.ones(len(key), dtype=torch.bool, device=key.device)
+    differ = key[1:] != key[:-1]
+    first[1:] = differ if key.dim() == 1 else differ.any(-1)
     starts = torch.nonzero(first)[:, 0]
     lengths = torch.diff(starts, append=starts.new_tensor([len(key)]))
     return key[starts], torch.segment_reduce(contrib, "sum", lengths=lengths)
@@ -139,6 +157,8 @@ class SelectedCIExpander:
         self._inc_H = None
         self._pend: list = []
         self._pt2_row_cap: Optional[int] = None
+        # the float64 connection function of the multiword exact dE2
+        self._conn_f64 = None
         # largest off-diagonal |H_ij| of a sample of sources, found once
         # for the source screen
         self._hmax: Optional[float] = None
@@ -319,27 +339,27 @@ class SelectedCIExpander:
 
     def _pt2_topk_device(self, src: np.ndarray, src_c: np.ndarray
                          ) -> Tuple[np.ndarray, np.ndarray]:
-        """Device block: connections of all sources, one int64 key per
-        target (``Hamiltonian.keys_device``: the word itself for a spin
-        configuration, alpha and beta in one key for a determinant), the
-        signed coupling of every unique key, and the top K keys by
-        coupling^2.  Returns host (cand (K', W) uint32, coupling (K',)
-        float64), one row per key of a block.
+        """Device block: connections of all sources, their keys
+        (``Hamiltonian.keys_device``: one int64 up to two words, an
+        (alpha, beta) pair at four), the signed coupling of every unique
+        key, and the top K keys by coupling^2.  Returns host (cand (K', W)
+        uint32, coupling (K',) float64), one row per key of a block.
 
         A block's partial couplings of a key add up in the host's grouped
         sum, so the merge over blocks is exact; :func:`_sum_by_key` makes
-        two calls bit-equal on a card.  With ``pt2_sort_rows`` a block
-        first keeps
-        its rows of largest |c_j H_ij| (a stable descending sort: an exact
-        top-k whose ties keep the lower row, as the JAX package's top-k
-        does on the CPU)."""
+        two calls bit-equal on a card.  The top K is a stable descending
+        sort: an exact top-k whose ties keep the lower key, as the JAX
+        package's top-k does on the CPU.  With ``pt2_sort_rows`` a block
+        first keeps its rows of largest |c_j H_ij| the same way (ties keep
+        the lower row)."""
         h = self.h
         dev = h.device
         C = h.n_connections
         c = self.config
         if self._pt2_row_cap is None:
             from ..utils.memory import MemoryBudget
-            self._pt2_row_cap = MemoryBudget.for_device(dev).pt2_score_rows(C)
+            self._pt2_row_cap = MemoryBudget.for_device(dev).pt2_score_rows(
+                C, h.pack_words)
         # K covers every internal det (<= max_basis_size) that can crowd
         # the coupling^2 ranking, plus a wide margin of externals for the
         # final rescore with the |E - E_i| denominator
@@ -354,15 +374,15 @@ class SelectedCIExpander:
                                     dtype=torch.float32, device=dev)
             conn, elems = h.connections_device(rows)
             contrib = (elems * coeff[:, None]).reshape(-1)
-            key = h.keys_device(conn).reshape(-1)
+            key = h.keys_device(conn).flatten(0, 1)
             del conn, elems
             if cap_rows and contrib.numel() > cap_rows:
                 sel = torch.sort(contrib.abs(), descending=True,
                                  stable=True).indices[:cap_rows]
                 contrib, key = contrib[sel], key[sel]
             key, coupling = _sum_by_key(key, contrib)
-            idx = torch.topk(coupling * coupling,
-                             min(K_max, coupling.numel())).indices
+            idx = torch.sort(coupling * coupling, descending=True,
+                             stable=True).indices[:K_max]
             keys.append(h.keys_to_host(key[idx]))
             couplings.append(coupling[idx].double().cpu().numpy())
         return h.unkey(np.concatenate(keys)), np.concatenate(couplings)
@@ -370,7 +390,7 @@ class SelectedCIExpander:
     def _pt2_candidates(self, basis: np.ndarray, coeffs: np.ndarray,
                         energy: float
                         ) -> Tuple[np.ndarray, np.ndarray]:
-        """Return (candidate dets (M, 2), PT2 scores (M,))."""
+        """Return (candidate dets (M, W), PT2 scores (M,))."""
         t0 = time.perf_counter()
         try:
             return self._pt2_candidates_timed(basis, coeffs, energy)
@@ -559,6 +579,9 @@ class SelectedCIExpander:
         external rows: raise ``cap`` and rerun.  A row budget of 0
         (``_pt2_row_cap``) takes the host f64 path.
 
+        4-word determinants (more than 32 orbitals) take
+        :meth:`_pt2_correction_multiword`.
+
         ``pad_to`` pinned the JAX package's compiled block shape across a
         growth loop; eager torch compiles nothing, so it is accepted and
         ignored.  One device only: the JAX package's mesh-sharded blocks
@@ -572,11 +595,10 @@ class SelectedCIExpander:
         if self._pt2_row_cap is None:
             from ..utils.memory import MemoryBudget
             self._pt2_row_cap = MemoryBudget.for_device(
-                h.device).pt2_score_rows(C)
+                h.device).pt2_score_rows(C, h.pack_words)
         if not self._pt2_row_cap:
             return self._pt2_correction_host(basis, coeffs, energy)
-        if h.pack_words > 2 or (h.pack_words == 2
-                                and not hasattr(h, "tables")):
+        if h.pack_words == 4:
             return self._pt2_correction_multiword(basis, coeffs, energy, cap)
 
         S_blk = max(64, min(self._pt2_row_cap // 2,
@@ -612,11 +634,84 @@ class SelectedCIExpander:
         return {"de2": de2, "corrected_energy": energy + de2,
                 "n_external": int(len(keys)), "exact": exact}
 
-    def _pt2_correction_multiword(self, basis, coeffs, energy, cap) -> Dict:
-        raise NotImplementedError(
-            "exact dE2 over multiword configurations (more than 32 "
-            "orbitals or 31 sites) needs the two-word layout, not ported "
-            "yet (ROADMAP Queue 1, Multiword)")
+    def _pt2_correction_multiword(self, basis: np.ndarray,
+                                  coeffs: np.ndarray, energy: float,
+                                  cap: int) -> Dict:
+        """The exact dE2 over 4-word determinants (33..64 orbitals).
+
+        A block's key pairs have no one-key ``searchsorted`` against the
+        basis, so each block sums its couplings by key pair
+        (:func:`_sum_by_key`), sorts them by coupling^2 (stable,
+        descending) and returns its top ``cap + |basis|`` rows: the
+        |basis| margin means basis rows crowding the top never displace an
+        external one.  The host groups the per-block partial couplings by
+        ``KEY128`` and drops the rows in the basis.  ``exact`` is True only
+        when every block's weighted rows all fit in its window.
+
+        The sum is float64 end to end: the elements come from the float64
+        form of the connection function, and each fetched row's H_kk is
+        computed on the device in float64 (``diagonal_device(dtype=
+        float64)``) from the rows the block already holds.  The JAX
+        package took float32 elements and the float32 device diagonal (a
+        known fault of 1e-5 to 1e-4 Ha a denominator); a host
+        ``diagonal_np`` over 10^8 rows would take too long."""
+        h = self.h
+        dev = h.device
+        C = h.n_connections
+        S = len(basis)
+        S_blk = max(64, min(self._pt2_row_cap // 2,
+                            1 << (max(S, 1) - 1).bit_length()))
+        fetch = int(min(cap + S, S_blk * C))
+        if self._conn_f64 is None:
+            from ..ops.slater import make_connection_fn_w2
+            self._conn_f64 = make_connection_fn_w2(h.tables, dev,
+                                                   dtype=torch.float64)
+        exact = True
+        key_parts, coup_parts, diag_parts = [], [], []
+        for i in range(0, S, S_blk):
+            conn, elems = self._conn_f64(to_device(basis[i:i + S_blk], dev))
+            coeff = torch.as_tensor(coeffs[i:i + S_blk],
+                                    dtype=torch.float64, device=dev)
+            contrib = (elems * coeff[:, None]).reshape(-1)
+            key = h.keys_device(conn).flatten(0, 1)
+            del conn, elems
+            key, coupling = _sum_by_key(key, contrib)
+            score = coupling * coupling
+            n_valid = int((score > 0).sum())
+            exact = exact and n_valid <= fetch
+            idx = torch.sort(score, descending=True,
+                             stable=True).indices[:min(fetch, n_valid)]
+            key, coupling = key[idx], coupling[idx]
+            del score, idx
+            rows = h.unkey_device(key)
+            diag = torch.cat([h.diagonal_device(rows[j:j + (1 << 20)],
+                                                dtype=torch.float64)
+                              for j in range(0, max(len(rows), 1),
+                                             1 << 20)])
+            key_parts.append(h.keys_to_host(key))
+            coup_parts.append(coupling.cpu().numpy())
+            diag_parts.append(diag.cpu().numpy())
+
+        keys = np.concatenate(key_parts)
+        coupling = np.concatenate(coup_parts)
+        diag_all = np.concatenate(diag_parts)
+        # grouped sum of the per-block partial couplings, then the
+        # externality filter: the sorted basis keys are searched in the
+        # unique candidates (|basis| searches, not one per candidate)
+        uniq, first_idx, inverse = _sorted_unique(keys, return_inverse=True)
+        coupling = np.bincount(inverse, weights=coupling,
+                               minlength=len(uniq))
+        diag = diag_all[first_idx]
+        ext = coupling != 0.0
+        if len(uniq):
+            bk = np.sort(h.keys(basis))
+            pos = np.searchsorted(uniq, bk)
+            in_range = pos < len(uniq)
+            pos_v = pos[in_range]
+            ext[pos_v[uniq[pos_v] == bk[in_range]]] = False
+        de2 = float(np.sum(coupling[ext] ** 2 / (energy - diag[ext])))
+        return {"de2": de2, "corrected_energy": energy + de2,
+                "n_external": int(ext.sum()), "exact": exact}
 
 
 class ResidualBasedExpander:

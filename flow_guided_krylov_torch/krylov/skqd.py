@@ -340,6 +340,18 @@ class SampleBasedKrylovDiagonalization:
         self.config = config or SKQDConfig()
         self.device = hamiltonian.device
         self.is_molecular = hasattr(hamiltonian, "n_alpha")
+        if self.is_molecular and hamiltonian.pack_words > 2:
+            raise NotImplementedError(
+                "SKQD over 4-word determinants (more than 32 orbitals), "
+                "restricted SKQD included, needs a device ELL build on "
+                "two-word keys, not ported yet (ROADMAP.md, Queue 1, item 2 "
+                "remainder: restricted SKQD at W = 4)")
+        if not self.is_molecular and hamiltonian.pack_words > 1:
+            raise NotImplementedError(
+                "SKQD on more than 31 spins (two words a configuration) is "
+                "not run by the JAX package either (its run_large_spin_sci "
+                "goes to Selected-CI); ROADMAP.md, Queue 1, item 2 "
+                "remainder: spin SKQD at W = 2")
         # an explicit evolution subspace (restricted SKQD): evolve within
         # the given packed states, not the enumerated full space
         self.restricted = subspace_states is not None

@@ -8,11 +8,13 @@ from .bits import keys_np, pack_np, unpack_np
 from .excitations import (ExcitationSpec, build_excitation_spec,
                           connection_count)
 from .slater import (SlaterTables, build_tables, connections_batch_np,
-                     diagonal_batch, diagonal_batch_np, make_connection_fn)
+                     diagonal_batch, diagonal_batch_np, make_connection_fn,
+                     make_connection_fn_auto, make_connection_fn_w2)
 
 __all__ = [
     "pack_np", "unpack_np", "keys_np",
     "ExcitationSpec", "build_excitation_spec", "connection_count",
     "SlaterTables", "build_tables", "connections_batch_np",
     "diagonal_batch", "diagonal_batch_np", "make_connection_fn",
+    "make_connection_fn_w2", "make_connection_fn_auto",
 ]

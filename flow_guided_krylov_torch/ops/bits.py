@@ -1,15 +1,22 @@
 """Packed-bitstring utilities for Slater determinants.
 
-Counterpart of ``flow_guided_krylov_tpu/ops/bits.py``, single-word only
-(n_orb <= 32; the two-word forms are not ported yet).  A determinant is a
-pair of words: alpha occupations in bit i of word 0, beta in word 1.
+Counterpart of ``flow_guided_krylov_tpu/ops/bits.py``.  Up to 32
+orbitals a determinant is a pair of words: alpha occupations in bit i of
+word 0, beta in word 1.  From 33 to 64 orbitals each spin channel spans
+two words in [hi, lo] order (orbital i < 32 in lo, i >= 32 in hi), so
+lexicographic word order equals numeric order, and a determinant is the
+row [a_hi, a_lo, b_hi, b_lo] (the ``*2`` primitives below).
 
 On the host the words are ``uint32`` NumPy arrays, bit-identical to the JAX
 package's.  On the device they are ``int64`` tensors: torch's ``uint32``
 lacks shifts, sort and ``searchsorted`` on CUDA, and a 32-bit word fits in
 an int64 with room for the shifts below.  :func:`to_device` and
 :func:`to_host` convert at the boundary.  Jordan-Wigner signs are parities
-of masked words, folded in registers (torch has no popcount).
+of masked words, folded in registers (torch has no popcount).  On the
+device a two-word channel becomes one 64-bit quantity
+(``(hi << 32) | lo`` in an int64, :func:`join2`), so its parity is one
+masked fold where the TPU took two uint32 windows; the results are
+bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ __all__ = [
     "pack_np", "unpack_np", "keys_np", "parity_between_np",
     "to_device", "to_host", "occupancy", "unpack_device", "keys_device",
     "unkey_device", "parity_between",
+    "pack2_np", "occupancy2_np", "flip_orbital2_np", "parity_between2_np",
+    "join2", "split2", "occupancy2", "flip_orbital2", "parity_between2",
+    "parity_between64",
 ]
 
 # The host key is (alpha << 32) | beta as uint64.  Its device twin is the
@@ -141,3 +151,117 @@ def parity_between(bits: torch.Tensor, p: torch.Tensor, q: torch.Tensor
     hi = torch.maximum(p, q)
     mask = ((1 << hi) - 1) & ~((1 << (lo + 1)) - 1)
     return 1 - 2 * _parity32(bits & mask)
+
+
+# ---------------------------------------------------------------------------
+# Two-word (33..64 orbital) channels: host mirrors, uint32 end to end
+# ---------------------------------------------------------------------------
+
+def pack2_np(occ: np.ndarray) -> np.ndarray:
+    """(..., n_orb) 0/1 -> (..., 2) uint32 [hi, lo] channel words."""
+    occ = np.asarray(occ)
+    n = occ.shape[-1]
+    lo = (occ[..., :32].astype(np.uint64)
+          @ (np.uint64(1) << np.arange(min(n, 32), dtype=np.uint64))
+          ).astype(np.uint32)
+    hi = (occ[..., 32:].astype(np.uint64)
+          @ (np.uint64(1) << np.arange(max(n - 32, 0), dtype=np.uint64))
+          ).astype(np.uint32)
+    return np.stack([hi, lo], axis=-1)
+
+
+def occupancy2_np(bits2: np.ndarray, n_orb: int) -> np.ndarray:
+    """(..., 2) uint32 [hi, lo] -> (..., n_orb) int8 occupations."""
+    shifts_lo = np.arange(32, dtype=np.uint32)
+    shifts_hi = np.arange(n_orb - 32, dtype=np.uint32)
+    lo = (bits2[..., 1:2] >> shifts_lo) & np.uint32(1)
+    hi = (bits2[..., 0:1] >> shifts_hi) & np.uint32(1)
+    return np.concatenate([lo, hi], axis=-1).astype(np.int8)
+
+
+def flip_orbital2_np(bits2: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """XOR orbital bit ``p`` of a two-word channel; ``bits2`` (..., 2)
+    broadcasts against ``p`` (...)."""
+    w = p >> 5
+    m = _POW2_32[p & 31]
+    z = np.uint32(0)
+    hi = bits2[..., 0] ^ np.where(w == 1, m, z)
+    lo = bits2[..., 1] ^ np.where(w == 0, m, z)
+    return np.stack([hi, lo], axis=-1)
+
+
+def parity_between2_np(bits2: np.ndarray, p: np.ndarray, q: np.ndarray
+                       ) -> np.ndarray:
+    """Two-word :func:`parity_between_np`: (-1)^(# occupied orbitals
+    strictly between p and q) across both words, as int32."""
+    p = np.asarray(p, np.int32)
+    q = np.asarray(q, np.int32)
+    s = np.minimum(p, q) + 1
+    e = np.maximum(p, q)
+    m_lo = (_LOW_MASKS32[np.clip(e, 0, 32)]
+            & ~_LOW_MASKS32[np.clip(s, 0, 32)])
+    m_hi = (_LOW_MASKS32[np.clip(e - 32, 0, 32)]
+            & ~_LOW_MASKS32[np.clip(s - 32, 0, 32)])
+    x = (bits2[..., 1] & m_lo) ^ (bits2[..., 0] & m_hi)
+    for sh in (16, 8, 4, 2, 1):
+        x = x ^ (x >> np.uint32(sh))
+    return 1 - 2 * (x & np.uint32(1)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Two-word channels on the device: one int64 per channel
+# ---------------------------------------------------------------------------
+
+def join2(bits2: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int64 [hi, lo] words -> (...) int64 channel holding all 64
+    bits (orbital 63 is the sign bit)."""
+    return (bits2[..., 0] << 32) | bits2[..., 1]
+
+
+def split2(channel: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`join2`: (...) int64 -> (..., 2) [hi, lo] words."""
+    return torch.stack([(channel >> 32) & 0xFFFFFFFF,
+                        channel & 0xFFFFFFFF], -1)
+
+
+def _parity64(x: torch.Tensor) -> torch.Tensor:
+    """Parity of the set bits of int64 values, all 64 bits.  The shifts
+    are arithmetic, but each fold only reads bits below 64 - s into the
+    low s bits, so the sign fill never reaches bit 0."""
+    for s in (32, 16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return x & 1
+
+
+# (1 << k) - 1 for k = 0..64 as int64 two's complement (k = 64: all ones);
+# gathered rather than shifted, so no mask overflows at orbital 63
+_LOW_MASKS64 = [(1 << k) - 1 if k < 64 else -1 for k in range(65)]
+
+
+def _low_masks64(device) -> torch.Tensor:
+    return torch.tensor(_LOW_MASKS64, dtype=torch.int64, device=device)
+
+
+def parity_between64(channel: torch.Tensor, p: torch.Tensor,
+                     q: torch.Tensor) -> torch.Tensor:
+    """:func:`parity_between` on 64-bit channels (int64 sign)."""
+    low = _low_masks64(channel.device)
+    mask = low[torch.maximum(p, q)] & ~low[torch.minimum(p, q) + 1]
+    return 1 - 2 * _parity64(channel & mask)
+
+
+def occupancy2(bits2: torch.Tensor, n_orb: int) -> torch.Tensor:
+    """(..., 2) int64 [hi, lo] -> (..., n_orb) int64 0/1 occupations."""
+    return occupancy(join2(bits2), n_orb)
+
+
+def flip_orbital2(bits2: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """XOR orbital bit ``p`` of a two-word channel; ``bits2`` (..., 2)
+    broadcasts against the int64 orbitals ``p`` (...)."""
+    return split2(join2(bits2) ^ (1 << p))
+
+
+def parity_between2(bits2: torch.Tensor, p: torch.Tensor, q: torch.Tensor
+                    ) -> torch.Tensor:
+    """Two-word :func:`parity_between` (the JW sign across 64 bits)."""
+    return parity_between64(join2(bits2), p, q)

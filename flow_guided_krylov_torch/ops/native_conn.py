@@ -62,12 +62,14 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
                      ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Connections of ``new`` dets that land in a SORTED uint64 key array.
+    """Connections of ``new`` dets that land in a SORTED key array.
 
     ``h`` is a molecular Hamiltonian exposing ``tables``; ``sorted_keys``
-    is ``np.sort(h.keys(basis))``.  Returns (rows, sorted_positions,
-    values) with values float64, or None when ``h`` has no Slater tables
-    or no compiler is available.
+    is ``np.sort(h.keys(basis))``: uint64 at W = 2, ``KEY128`` records at
+    W = 4, where the kernel takes 64-bit channels and compares the
+    (alpha, beta) key pair (``wide_keys``).  Returns (rows,
+    sorted_positions, values) with values float64, or None when ``h`` has
+    no Slater tables or no compiler is available.
     """
     t = getattr(h, "tables", None)
     if t is None:
@@ -76,10 +78,20 @@ def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
     if lib is None:
         return None
     new = np.atleast_2d(np.asarray(new, np.uint32))
-    a = np.ascontiguousarray(new[:, 0].astype(np.uint64))
-    b = np.ascontiguousarray(new[:, 1].astype(np.uint64))
-    key_a = np.ascontiguousarray(sorted_keys, np.uint64)
-    key_b = np.zeros(len(key_a), np.uint64)
+    wide = h.pack_words == 4
+    if wide:      # [a_hi, a_lo, b_hi, b_lo] -> 64-bit channels
+        a = np.ascontiguousarray(new[:, 1].astype(np.uint64)
+                                 | (new[:, 0].astype(np.uint64) << 32))
+        b = np.ascontiguousarray(new[:, 3].astype(np.uint64)
+                                 | (new[:, 2].astype(np.uint64) << 32))
+        kk = np.ascontiguousarray(sorted_keys).view(np.uint64).reshape(-1, 2)
+        key_a = np.ascontiguousarray(kk[:, 0])
+        key_b = np.ascontiguousarray(kk[:, 1])
+    else:
+        a = np.ascontiguousarray(new[:, 0].astype(np.uint64))
+        b = np.ascontiguousarray(new[:, 1].astype(np.uint64))
+        key_a = np.ascontiguousarray(sorted_keys, np.uint64)
+        key_b = np.zeros(len(key_a), np.uint64)
     ints = [np.ascontiguousarray(x) for x in (t.h1, t.jj, t.ex, t.h2)]
     parts = []
     for start in range(0, len(a), _ROWS_PER_CALL):
@@ -91,7 +103,7 @@ def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
             pos = np.empty(cap, np.int64)
             vals = np.empty(cap, np.float64)
             total = lib.fgk_conn_hits(
-                t.n_orb, t.n_alpha, t.n_beta, 0, len(ca), ca, cb,
+                t.n_orb, t.n_alpha, t.n_beta, int(wide), len(ca), ca, cb,
                 len(key_a), key_a, key_b, *ints, cap, rows, pos, vals)
             if total <= cap:
                 break

@@ -1,11 +1,16 @@
 """Batched Slater-Condon matrix elements over packed determinants.
 
-Counterpart of ``flow_guided_krylov_tpu/ops/slater.py`` for n_orb <= 32
-(one word per spin channel):
+Counterpart of ``flow_guided_krylov_tpu/ops/slater.py``: one word per
+spin channel up to 32 orbitals ((B, 2) rows), two from 33 to 64
+((B, 4) rows ``[a_hi, a_lo, b_hi, b_lo]``, see ``ops/bits.py``):
 
-* :func:`make_connection_fn` and :func:`diagonal_batch` run in float32 on
-  the device of the words they are given.  JAX's ``vmap`` over determinants
-  becomes an explicit batch dimension and ``torch.gather``.
+* :func:`make_connection_fn` (one word), :func:`make_connection_fn_w2`
+  (two words) and :func:`diagonal_batch` run in float32 on the device of
+  the words they are given.  JAX's ``vmap`` over determinants becomes an
+  explicit batch dimension and ``torch.gather``; the two-word kernel runs
+  the one-word algebra on 64-bit channels.  The JAX package's one-hot
+  matmul forms of the elements (``_build_pair_tables``, MXU workarounds)
+  are not carried: both kernels gather ``h2`` by (p, q, r, s).
 * ``*_np`` functions are the float64 host mirrors, used where final
   eigensolves need f64, and the reference for tests.
 
@@ -18,17 +23,21 @@ of masked words.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .bits import _POW2_32, occupancy, parity_between, parity_between_np
+from .bits import (_POW2_32, flip_orbital2_np, join2, occupancy,
+                   occupancy2, occupancy2_np, parity_between,
+                   parity_between2_np, parity_between64, parity_between_np,
+                   split2)
 from .excitations import ExcitationSpec, build_excitation_spec
 
 __all__ = [
     "SlaterTables", "build_tables", "diagonal_batch", "diagonal_batch_np",
-    "make_connection_fn", "connections_batch_np",
+    "make_connection_fn", "make_connection_fn_w2", "make_connection_fn_auto",
+    "connections_batch_np",
 ]
 
 
@@ -59,10 +68,9 @@ class SlaterTables:
 def build_tables(h1: np.ndarray, h2: np.ndarray, e_nuc: float,
                  n_alpha: int, n_beta: int) -> SlaterTables:
     n = h1.shape[0]
-    if n > 32:
+    if n > 64:
         raise NotImplementedError(
-            "one word per spin channel supports n_orb <= 32; the two-word "
-            "kernels are not ported yet")
+            "two words per spin channel support n_orb <= 64")
     r = np.arange(n)
     jj = h2[:, :, r, r]                       # (n, n, n) -> jj[p,q,r]=(pq|rr)
     ex = np.empty((n, n, n))                  # ex[p,q,r] = (pr|rq) = h2[p,r,r,q]
@@ -100,33 +108,45 @@ def _diag_from_occ(na, nb, h1d, jmat, kmat, e_nuc, mm):
     return e_nuc + one + coul - exch
 
 
-def diagonal_batch(packed: torch.Tensor, tables: SlaterTables
-                   ) -> torch.Tensor:
-    """(B, 2) int64 words -> (B,) float32 diagonal <x|H|x> on their device.
+def _channel_occupations(packed, n, occ, occ2):
+    """(B, W) words -> (alpha, beta) (B, n) occupations, W = 2 or 4."""
+    if n > 32:
+        return occ2(packed[:, 0:2], n), occ2(packed[:, 2:4], n)
+    return occ(packed[:, 0], n), occ(packed[:, 1], n)
 
-    The matmuls are full float32 (TF32 stays off): mHa-level accuracy
-    rules out reduced-precision accumulation.
+
+def diagonal_batch(packed: torch.Tensor, tables: SlaterTables,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, W) int64 words -> (B,) diagonal <x|H|x> on their device, in
+    ``dtype`` (float32 on the scoring paths; float64 where the exact dE2
+    takes its denominators on the device).
+
+    The matmuls run in ``dtype`` with TF32 off: mHa-level accuracy rules
+    out reduced-precision accumulation.
     """
     n = tables.n_orb
     dev = packed.device
-    na = occupancy(packed[:, 0], n).float()
-    nb = occupancy(packed[:, 1], n).float()
+    na, nb = _channel_occupations(packed, n, occupancy, occupancy2)
 
-    def f32(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    return _diag_from_occ(na, nb, f32(np.diag(tables.h1)), f32(tables.jmat),
-                          f32(tables.kmat), tables.e_nuc, torch.matmul)
+    return _diag_from_occ(na.to(dtype), nb.to(dtype), t(np.diag(tables.h1)),
+                          t(tables.jmat), t(tables.kmat), tables.e_nuc,
+                          torch.matmul)
+
+
+def _occupancy_np(bits: np.ndarray, n: int) -> np.ndarray:
+    return (bits[..., None] >> np.arange(n, dtype=np.uint32)) & 1
 
 
 def diagonal_batch_np(packed: np.ndarray, tables: SlaterTables) -> np.ndarray:
     """Host float64 mirror of :func:`diagonal_batch`."""
     n = tables.n_orb
-    shifts = np.arange(n, dtype=np.uint32)
-    na = ((packed[:, 0:1] >> shifts) & 1).astype(np.float64)
-    nb = ((packed[:, 1:2] >> shifts) & 1).astype(np.float64)
-    return _diag_from_occ(na, nb, np.diag(tables.h1), tables.jmat,
-                          tables.kmat, tables.e_nuc, np.matmul)
+    na, nb = _channel_occupations(packed, n, _occupancy_np, occupancy2_np)
+    return _diag_from_occ(na.astype(np.float64), nb.astype(np.float64),
+                          np.diag(tables.h1), tables.jmat, tables.kmat,
+                          tables.e_nuc, np.matmul)
 
 
 # ---------------------------------------------------------------------------
@@ -147,27 +167,26 @@ def _occ_vir_from_occ_np(occ: np.ndarray, k: int):
 
 
 # ---------------------------------------------------------------------------
-# Device connection function (torch, float32)
+# Device connection functions (torch, float32)
 # ---------------------------------------------------------------------------
 
-def make_connection_fn(tables: SlaterTables, device, chunk: int = 2048
-                       ) -> Callable[[torch.Tensor],
-                                     Tuple[torch.Tensor, torch.Tensor]]:
-    """Build f(packed (B, 2) int64) -> (conn (B, C, 2) int64, elems (B, C) f32).
+# connections per row chunk of the device functions: bounds the gather
+# indices and temporaries of a chunk (about 0.15 KB an entry) to a few GB
+CHUNK_ENTRIES = 1 << 24
 
-    C = tables.n_connections, ordered [singles_a, singles_b, doubles_aa,
-    doubles_bb, doubles_ab].  All connections are valid (no masking):
-    particle conservation makes the per-determinant count static.  Rows
-    are processed ``chunk`` at a time; the (chunk, n, n, n) Coulomb product
-    is the largest temporary.
-    """
+
+def _connection_sections(tables: SlaterTables, device, parity,
+                         dtype: torch.dtype = torch.float32):
+    """f(pa, pb) over (B, 1) int64 channels of up to 64 bits ->
+    [(alpha, beta, elems), ...] per section in the order [singles_a,
+    singles_b, doubles_aa, doubles_bb, doubles_ab]: (B, c) target channels
+    (the unchanged channel as (B, 1)) and (B, c) elements in ``dtype``.
+    ``parity`` is the JW sign of the channel width."""
     n = tables.n_orb
     ka, kb = tables.n_alpha, tables.n_beta
-    C = tables.n_connections
 
     def f32(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32,
-                            device=device)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
     def i64(a):
         return torch.tensor(np.asarray(a), dtype=torch.int64,
@@ -192,11 +211,10 @@ def make_connection_fn(tables: SlaterTables, device, chunk: int = 2048
         order = torch.argsort((1 - occ) * n + orbitals, dim=1)
         return order[:, :k], order[:, k:]
 
-    def block(packed):
-        B = packed.shape[0]
-        pa, pb = packed[:, 0:1], packed[:, 1:2]              # (B, 1)
-        occ_a = occupancy(packed[:, 0], n)
-        occ_b = occupancy(packed[:, 1], n)
+    def sections(pa, pb):
+        B = pa.shape[0]
+        occ_a = occupancy(pa[:, 0], n)
+        occ_b = occupancy(pb[:, 0], n)
         fa, fb = occ_a.float(), occ_b.float()
         la, va = occ_vir(occ_a, ka)
         lb, vb = occ_vir(occ_b, kb)
@@ -204,21 +222,18 @@ def make_connection_fn(tables: SlaterTables, device, chunk: int = 2048
         coul = (jj * (fa + fb)[:, None, None, :]).sum(-1)    # (B, n, n)
         m_a = (h1 + coul - (ex * fa[:, None, None, :]).sum(-1)).reshape(B, -1)
         m_b = (h1 + coul - (ex * fb[:, None, None, :]).sum(-1)).reshape(B, -1)
-
-        conns, elems = [], []
+        out = []
 
         def emit(new, other, el, alpha_channel):
-            other = other.expand_as(new)
-            conns.append(torch.stack([new, other] if alpha_channel
-                                     else [other, new], -1))
-            elems.append(el)
+            out.append((new, other, el) if alpha_channel
+                       else (other, new, el))
 
         for bits, other, lst, vlst, m, grid, alpha in (
                 (pa, pb, la, va, m_a, sing_a, True),
                 (pb, pa, lb, vb, m_b, sing_b, False)):
             p = lst[:, grid[:, 0]]
             q = vlst[:, grid[:, 1]]
-            sign = parity_between(bits, p, q)
+            sign = parity(bits, p, q)
             emit(flip(bits, p, q), other, m.gather(1, p * n + q) * sign,
                  alpha)
 
@@ -229,32 +244,114 @@ def make_connection_fn(tables: SlaterTables, device, chunk: int = 2048
             r = lst[:, grid[:, 1]]
             q = vlst[:, grid[:, 2]]
             s = vlst[:, grid[:, 3]]
-            s1 = parity_between(bits, p, q)
+            s1 = parity(bits, p, q)
             mid = flip(bits, p, q)
-            s2 = parity_between(mid, r, s)
+            s2 = parity(mid, r, s)
             emit(flip(mid, r, s), other,
                  (h2g(p, q, r, s) - h2g(p, s, r, q)) * (s1 * s2), alpha)
 
+        # opposite spin: the sign multiplies one parity of each channel
         p = la[:, ab[:, 0]]
         q = va[:, ab[:, 1]]
         r = lb[:, ab[:, 2]]
         s = vb[:, ab[:, 3]]
-        sign = parity_between(pa, p, q) * parity_between(pb, r, s)
-        conns.append(torch.stack([flip(pa, p, q), flip(pb, r, s)], -1))
-        elems.append(h2g(p, q, r, s) * sign)
-        return torch.cat(conns, 1), torch.cat(elems, 1)
+        sign = parity(pa, p, q) * parity(pb, r, s)
+        out.append((flip(pa, p, q), flip(pb, r, s), h2g(p, q, r, s) * sign))
+        return out
+
+    return sections
+
+
+def _chunked(block, row_words: int, C: int, device, chunk: Optional[int],
+             dtype: torch.dtype = torch.float32):
+    """Apply ``block`` to ``chunk`` rows at a time into preallocated
+    ((B, C, row_words) int64, (B, C) ``dtype``) outputs; by default a
+    chunk holds about ``CHUNK_ENTRIES`` connections (at most 2048
+    rows)."""
+    if chunk is None:
+        chunk = max(1, min(2048, CHUNK_ENTRIES // max(C, 1)))
 
     def connections(packed: torch.Tensor):
         B = packed.shape[0]
         if B <= chunk:
             return block(packed)
-        conn = torch.empty((B, C, 2), dtype=torch.int64, device=device)
-        el = torch.empty((B, C), dtype=torch.float32, device=device)
+        conn = torch.empty((B, C, row_words), dtype=torch.int64,
+                           device=device)
+        el = torch.empty((B, C), dtype=dtype, device=device)
         for i in range(0, B, chunk):
             conn[i:i + chunk], el[i:i + chunk] = block(packed[i:i + chunk])
         return conn, el
 
     return connections
+
+
+def make_connection_fn(tables: SlaterTables, device,
+                       chunk: Optional[int] = None
+                       ) -> Callable[[torch.Tensor],
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """Build f(packed (B, 2) int64) -> (conn (B, C, 2) int64, elems (B, C) f32)
+    for n_orb <= 32.
+
+    C = tables.n_connections, ordered [singles_a, singles_b, doubles_aa,
+    doubles_bb, doubles_ab].  All connections are valid (no masking):
+    particle conservation makes the per-determinant count static.  Rows
+    are processed ``chunk`` at a time (see :func:`_chunked`).
+    """
+    sections = _connection_sections(tables, device, parity_between)
+
+    def block(packed):
+        secs = sections(packed[:, 0:1], packed[:, 1:2])
+        return (torch.cat([torch.stack([a.expand_as(e), b.expand_as(e)], -1)
+                           for a, b, e in secs], 1),
+                torch.cat([e for _, _, e in secs], 1))
+
+    return _chunked(block, 2, tables.n_connections, device, chunk)
+
+
+def make_connection_fn_w2(tables: SlaterTables, device,
+                          chunk: Optional[int] = None,
+                          dtype: torch.dtype = torch.float32
+                          ) -> Callable[[torch.Tensor],
+                                        Tuple[torch.Tensor, torch.Tensor]]:
+    """The connection function for 33..64 orbitals: f(packed (B, 4) int64
+    ``[a_hi, a_lo, b_hi, b_lo]``) -> (conn (B, C, 4) int64, elems (B, C)
+    in ``dtype``), in the sections and order of :func:`make_connection_fn`.
+    Scoring takes float32 elements; the exact dE2 float64.
+
+    Each channel's two words become one 64-bit channel (``ops/bits.join2``),
+    the one-word algebra runs on it with 64-bit Jordan-Wigner parities,
+    and the targets are split back into [hi, lo] words section by section
+    into the preallocated output.  At C = 104,760 (39 orbitals) a row's
+    targets take 3.35 MB, so callers chunk their rows."""
+    sections = _connection_sections(tables, device, parity_between64, dtype)
+    C = tables.n_connections
+
+    def block(packed):
+        B = packed.shape[0]
+        secs = sections(join2(packed[:, 0:2])[:, None],
+                        join2(packed[:, 2:4])[:, None])
+        conn = torch.empty((B, C, 4), dtype=torch.int64, device=device)
+        el = torch.empty((B, C), dtype=dtype, device=device)
+        off = 0
+        for a, b, e in secs:
+            c = e.shape[1]
+            conn[:, off:off + c, 0:2] = split2(a)
+            conn[:, off:off + c, 2:4] = split2(b)
+            el[:, off:off + c] = e
+            off += c
+        return conn, el
+
+    return _chunked(block, 4, C, device, chunk, dtype)
+
+
+def make_connection_fn_auto(tables: SlaterTables, device):
+    """The connection function for the table's width: one word per
+    channel up to 32 orbitals, two above (the JAX package's
+    ``connection_kernel_choice`` picks ``w2`` there; its one-hot variants
+    for smaller spaces are TPU workarounds)."""
+    if tables.n_orb > 32:
+        return make_connection_fn_w2(tables, device)
+    return make_connection_fn(tables, device)
 
 
 # ---------------------------------------------------------------------------
@@ -264,21 +361,25 @@ def make_connection_fn(tables: SlaterTables, device, chunk: int = 2048
 def connections_batch_np(packed: np.ndarray, tables: SlaterTables,
                          chunk: int = 2048
                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """Vectorized float64 connections: (B, 2) uint32 -> ((B, C, 2), (B, C)).
+    """Vectorized float64 connections: (B, W) uint32 -> ((B, C, W), (B, C)),
+    W = 2 up to 32 orbitals, 4 above (:func:`_connections_batch_np_w2`).
 
     Processed in ``chunk``-row slices into preallocated outputs, so the
     temporaries stay chunk-sized.
     """
     B_total = packed.shape[0]
+    row_w = 4 if tables.n_orb > 32 else 2
     if B_total > chunk:
         C = tables.n_connections
-        conn_out = np.empty((B_total, C, 2), np.uint32)
+        conn_out = np.empty((B_total, C, row_w), np.uint32)
         el_out = np.empty((B_total, C), np.float64)
         for i in range(0, B_total, chunk):
             c, e = connections_batch_np(packed[i:i + chunk], tables)
             conn_out[i:i + len(c)] = c
             el_out[i:i + len(e)] = e
         return conn_out, el_out
+    if tables.n_orb > 32:
+        return _connections_batch_np_w2(packed, tables)
     n, ka, kb = tables.n_orb, tables.n_alpha, tables.n_beta
     B = packed.shape[0]
     pa = packed[:, 0].astype(np.uint32)
@@ -350,4 +451,81 @@ def connections_batch_np(packed: np.ndarray, tables: SlaterTables,
     out_conn.append(np.stack([na, nbv], -1))
     out_el.append(elems)
 
+    return np.concatenate(out_conn, axis=1), np.concatenate(out_el, axis=1)
+
+
+def _connections_batch_np_w2(packed: np.ndarray, tables: SlaterTables
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two-word host mirror: (B, 4) uint32 -> ((B, C, 4), (B, C) f64), in
+    the device functions' section order, values by ``h2`` fancy indexing
+    and signs by the uint32 two-word primitives (``ops/bits.py``)."""
+    n, ka, kb = tables.n_orb, tables.n_alpha, tables.n_beta
+    B = packed.shape[0]
+    pa2 = packed[:, 0:2].astype(np.uint32)
+    pb2 = packed[:, 2:4].astype(np.uint32)
+    occ_a_i = occupancy2_np(pa2, n)
+    occ_b_i = occupancy2_np(pb2, n)
+    occ_a = occ_a_i.astype(np.float64)
+    occ_b = occ_b_i.astype(np.float64)
+    N = occ_a + occ_b
+    la, va = _occ_vir_from_occ_np(occ_a_i, ka)
+    lb, vb = _occ_vir_from_occ_np(occ_b_i, kb)
+
+    coul = np.einsum("pqr,br->bpq", tables.jj, N, optimize=True)
+    m_a = tables.h1[None] + coul - np.einsum("pqr,br->bpq", tables.ex,
+                                             occ_a, optimize=True)
+    m_b = tables.h1[None] + coul - np.einsum("pqr,br->bpq", tables.ex,
+                                             occ_b, optimize=True)
+    h2 = tables.h2
+    bidx = np.arange(B)[:, None]
+
+    def flip2(bits2, p, q):
+        return flip_orbital2_np(flip_orbital2_np(bits2, p), q)
+
+    out_conn = []
+    out_el = []
+
+    def emit(new2, other2, elems, alpha_channel):
+        other = np.broadcast_to(other2[:, None, :], new2.shape)
+        pair = (np.concatenate([new2, other], -1) if alpha_channel
+                else np.concatenate([other, new2], -1))
+        out_conn.append(pair.astype(np.uint32))
+        out_el.append(elems)
+
+    for bits2, other2, lst, vlst, m, is_a, spec in (
+            (pa2, pb2, la, va, m_a, True, tables.spec_a),
+            (pb2, pa2, lb, vb, m_b, False, tables.spec_b)):
+        g = spec.singles
+        p = lst[:, g[:, 0]]
+        q = vlst[:, g[:, 1]]
+        sign = parity_between2_np(bits2[:, None, :], p, q)
+        elems = m[bidx, p, q] * sign
+        emit(flip2(bits2[:, None, :], p, q), other2, elems, is_a)
+
+    for bits2, other2, lst, vlst, is_a, spec in (
+            (pa2, pb2, la, va, True, tables.spec_a),
+            (pb2, pa2, lb, vb, False, tables.spec_b)):
+        g = spec.doubles
+        p = lst[:, g[:, 0]]
+        r = lst[:, g[:, 1]]
+        q = vlst[:, g[:, 2]]
+        s = vlst[:, g[:, 3]]
+        s1 = parity_between2_np(bits2[:, None, :], p, q)
+        mid = flip2(bits2[:, None, :], p, q)
+        s2 = parity_between2_np(mid, r, s)
+        elems = (h2[p, q, r, s] - h2[p, s, r, q]) * (s1 * s2)
+        emit(flip2(mid, r, s), other2, elems, is_a)
+
+    g = tables.ab_grid
+    p = la[:, g[:, 0]]
+    q = va[:, g[:, 1]]
+    r = lb[:, g[:, 2]]
+    s = vb[:, g[:, 3]]
+    sign = (parity_between2_np(pa2[:, None, :], p, q)
+            * parity_between2_np(pb2[:, None, :], r, s))
+    elems = h2[p, q, r, s] * sign
+    na2 = flip2(pa2[:, None, :], p, q).astype(np.uint32)
+    nb2 = flip2(pb2[:, None, :], r, s).astype(np.uint32)
+    out_conn.append(np.concatenate([na2, nb2], -1))
+    out_el.append(elems)
     return np.concatenate(out_conn, axis=1), np.concatenate(out_el, axis=1)

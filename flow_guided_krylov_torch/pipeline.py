@@ -21,8 +21,9 @@ the stage-4 skip rules and the SKQD validation (energies below exact -
 1 mHa are rejected) are the JAX package's.  Branches not ported raise
 ``NotImplementedError`` naming their ROADMAP entry: the subspace-energy
 objective (``use_local_energy=False``), checkpointing and resume, more
-than one device, and the discrete flow on a molecule
-(``use_particle_conserving_flow=False``), which fails in the JAX package.
+than one device, and two branches that fail in the JAX package: the
+discrete flow on a molecule (``use_particle_conserving_flow=False``) and
+multiword configurations (more than 32 orbitals or 31 spins).
 """
 
 from __future__ import annotations
@@ -213,6 +214,15 @@ class FlowGuidedKrylovPipeline:
         self.results: Dict = {}
         self.is_molecular = hasattr(hamiltonian, "n_alpha")
         c = self.config
+        if hamiltonian.pack_words > (2 if self.is_molecular else 1):
+            raise NotImplementedError(
+                "the pipeline over multiword configurations (more than 32 "
+                "orbitals or 31 spins) is not ported: the JAX package's own "
+                "pipeline fails there (its stage-1 unique_compact "
+                "broadcasts 4-word rows to 2 words, a ValueError; its "
+                "_spin_reference_state_for packs 2^n - 1 into one uint32, an "
+                "OverflowError); ROADMAP.md, Queue 1, item 2 remainder: the "
+                "pipeline at W > 2")
         if self.is_molecular and not c.use_particle_conserving_flow:
             raise NotImplementedError(
                 "use_particle_conserving_flow=False on a molecule is not "

@@ -65,13 +65,22 @@ class MemoryBudget:
         dim = (self.total_bytes * 0.25 / (4 * max(n_copies, 1))) ** 0.5
         return int(max(4096, min(65536, dim)))
 
-    def pt2_score_rows(self, n_connections: int) -> int:
+    # live bytes a PT2 candidate at 4 words a row: the four int64 target
+    # words (32), the (alpha, beta) key pair and its sorted copy (32), two
+    # stable sorts' permutations and scratch (24), the f32 element,
+    # contribution and score (12), flags and segment starts (~8); counted
+    # up to 128
+    PT2_BYTES_PER_ENTRY_W4 = 128
+
+    def pt2_score_rows(self, n_connections: int, row_words: int = 2) -> int:
         """Max source rows per PT2 device-scoring block
         (``krylov/residual_expansion.py``): a block flattens
-        rows * n_connections candidates (int64 words and key, f32
-        contribution, sort permutation: ~48 B/entry live).  Budget: 40% of
+        rows * n_connections candidates (at 1 or 2 words a row: int64
+        words and key, f32 contribution, sort permutation, ~48 B/entry
+        live; at 4 words ``PT2_BYTES_PER_ENTRY_W4``).  Budget: 40% of
         memory, rounded down to a power of two."""
-        entries = self.total_bytes * 0.40 / 48
+        per_entry = 48 if row_words <= 2 else self.PT2_BYTES_PER_ENTRY_W4
+        entries = self.total_bytes * 0.40 / per_entry
         rows = int(max(64, entries / max(n_connections, 1)))
         return 1 << (rows.bit_length() - 1)
 

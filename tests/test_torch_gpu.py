@@ -562,3 +562,102 @@ def test_spin_pipeline_on_card(card):
     for key in ("nf_energy", "residual_energy", "final_energy"):
         assert out[key] >= e_exact - 1e-9, key
     assert abs(out["error_mha"]) < 1.6
+
+
+# ---------------------------------------------------------------------------
+# Multiword: 4-word determinants (33..64 orbitals), two-word spin chains
+# ---------------------------------------------------------------------------
+
+def _embedded34(device, seed):
+    """A 6-orbital random system (``synthetic_integrals``) zero-padded into
+    34 orbitals: 4-word rows whose extra virtuals couple to nothing."""
+    from flow_guided_krylov_torch.hamiltonians import (MolecularHamiltonian,
+                                                       synthetic_integrals)
+    small = synthetic_integrals(6, 2, 2, seed)
+    h1 = np.zeros((34, 34))
+    h1[:6, :6] = small.h1e
+    h2 = np.zeros((34,) * 4)
+    h2[:6, :6, :6, :6] = small.h2e
+    small.h1e, small.h2e, small.n_orbitals = h1, h2, 34
+    return MolecularHamiltonian(small, device)
+
+
+def _multiword_state(card, model):
+    """(Hamiltonian on the card, a Selected-CI basis, its ground state)."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import (HeisenbergHamiltonian,
+                                                       pack_spin_state)
+    if model == "embedded34":
+        h = _embedded34("cuda", seed=11)
+        start = h.get_hf_state()[None, :]
+    else:
+        h = HeisenbergHamiltonian(33, 1.0, 1.0, 1.0,
+                                  h_z=np.array([0.1] + [0.0] * 32),
+                                  device="cuda")
+        start = pack_spin_state(sum(1 << i for i in range(0, 33, 2)),
+                                33)[None, :]
+    cfg = krylov.ResidualExpansionConfig(configs_per_iteration=40,
+                                         max_iterations=3,
+                                         max_basis_size=300)
+    basis = krylov.iterative_residual_expansion(h, start, cfg)["basis"]
+    exp = krylov.SelectedCIExpander(h, cfg)
+    e, coeffs = exp._diagonalize(basis)
+    return h, cfg, basis, coeffs, e
+
+
+def test_w2_connections_on_card_match_host(card):
+    """The 4-word connection function on the card: targets bit for bit,
+    float32 elements to 2e-5 and the float64 form to 1e-12 of the host
+    f64 mirror, at 35 orbitals (the JAX package's w2 test system)."""
+    from flow_guided_krylov_torch.hamiltonians import \
+        create_synthetic_hamiltonian
+    from flow_guided_krylov_torch.ops.slater import make_connection_fn_w2
+    h = create_synthetic_hamiltonian(35, 2, 2, "cuda", seed=3)
+    assert h.pack_words == 4
+    hf = h.get_hf_state()[None, :]
+    conn, el = h.connections_np(hf)
+    batch = np.concatenate([hf, conn[0][np.abs(el[0]) > 1e-10][:40]])
+    c_np, e_np = h.connections_np(batch)
+    rows = to_device(batch, "cuda")
+    c_d, e_d = h.connections_device(rows)
+    assert np.array_equal(to_host(c_d), c_np)
+    assert np.max(np.abs(e_d.cpu().numpy() - e_np)) < 2e-5
+    c64, e64 = make_connection_fn_w2(h.tables, "cuda",
+                                     dtype=torch.float64)(rows)
+    assert np.array_equal(to_host(c64), c_np)
+    assert np.max(np.abs(e64.cpu().numpy() - e_np)) < 1e-12
+    d64 = h.diagonal_device(rows, dtype=torch.float64).cpu().numpy()
+    assert np.max(np.abs(d64 - h.diagonal_np(batch))) < 1e-12
+
+
+def test_w2_scorer_on_card_is_reproducible(card):
+    """Two device scorings of a 4-word basis (key pairs, two stable
+    sorts, segment_reduce) agree bit for bit and give the host scorer's
+    candidates."""
+    from flow_guided_krylov_torch import krylov
+    h, cfg, basis, coeffs, e = _multiword_state(card, "embedded34")
+    dev = krylov.SelectedCIExpander(h, cfg, use_device_scoring=True)
+    host = krylov.SelectedCIExpander(h, cfg, use_device_scoring=False)
+    a = dev._pt2_topk_device(basis, coeffs)
+    b = dev._pt2_topk_device(basis, coeffs)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    cand_d, sc_d = dev._pt2_candidates(basis, coeffs, e)
+    cand_h, sc_h = host._pt2_candidates(basis, coeffs, e)
+    assert h.keys(cand_d).tobytes() == h.keys(cand_h).tobytes()
+    np.testing.assert_allclose(sc_d, sc_h, rtol=1e-4, atol=1e-12)
+
+
+@pytest.mark.parametrize("model", ["embedded34", "heisenberg33"])
+def test_multiword_de2_on_card_matches_host(card, model):
+    """The exact dE2 on the card (4-word rows: the multiword blocks with
+    float64 elements and denominators; 33 sites: the one-key block)
+    against the host f64 path to 1e-8 Ha, twice bit for bit."""
+    from flow_guided_krylov_torch import krylov
+    h, cfg, basis, coeffs, e = _multiword_state(card, model)
+    exp = krylov.SelectedCIExpander(h, cfg)
+    a = exp.pt2_correction(basis, coeffs, e)
+    b = exp.pt2_correction(basis, coeffs, e)
+    assert a == b and a["exact"]
+    host = exp._pt2_correction_host(basis, coeffs, e)
+    assert a["n_external"] == host["n_external"]
+    assert abs(a["de2"] - host["de2"]) < 1e-8

@@ -164,10 +164,16 @@ def test_blocked_equals_one_block():
 
 
 def test_multiword_raises_naming_its_queue():
-    h = pmol.create_lih_hamiltonian("cpu")
-    with pytest.raises(NotImplementedError, match="Multiword"):
-        pre.SelectedCIExpander(h)._pt2_correction_multiword(None, None, 0.0,
-                                                            1)
+    """The multiword dE2 is ported (``tests/test_torch_multiword.py``);
+    what stays of ROADMAP item 2 raises naming its entry: SKQD within a
+    subspace of 4-word determinants (33 orbitals)."""
+    from flow_guided_krylov_torch.krylov.skqd import \
+        SampleBasedKrylovDiagonalization
+    h = pmol.create_synthetic_hamiltonian(33, 1, 1, "cpu")
+    assert h.pack_words == 4
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        SampleBasedKrylovDiagonalization(
+            h, subspace_states=h.get_hf_state()[None, :])
 
 
 def test_iterative_expansion_pt2_keys_match_jax():

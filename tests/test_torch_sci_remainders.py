@@ -246,7 +246,8 @@ def test_device_scorer_has_no_atomic_sum():
     src = inspect.getsource(pre.SelectedCIExpander._pt2_topk_device)
     assert "index_add" not in src and "_sum_by_key(" in src
     summed = inspect.getsource(pre._sum_by_key)
-    assert "segment_reduce" in summed and "stable=True" in summed
+    assert "segment_reduce" in summed and "lex_order(" in summed
+    assert "stable=True" in inspect.getsource(pre.lex_order)
     _, ph, start = _hams("heisenberg12")
     cfg = pre.ResidualExpansionConfig(configs_per_iteration=40,
                                       max_iterations=2)

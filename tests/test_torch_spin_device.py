@@ -128,6 +128,10 @@ def test_apply_statevector_equals_dense_and_jax(name):
 
 
 def test_two_words_still_raise():
+    """32 sites take two words a configuration; the table-free full-2^n
+    product holds one word a state and refuses them by name."""
     from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
-    with pytest.raises(NotImplementedError):
-        TransverseFieldIsing(32, device="cpu")
+    h = TransverseFieldIsing(32, device="cpu")
+    assert h.pack_words == 2
+    with pytest.raises(NotImplementedError, match="n <= 31"):
+        h.apply_statevector(torch.zeros(4), torch.zeros(4))
