@@ -1,6 +1,6 @@
 """Hamiltonians over packed determinants and spin configurations."""
 
-from .base import Hamiltonian
+from .base import Hamiltonian, PauliString
 from .molecular import (MOLECULE_FACTORIES, MolecularHamiltonian,
                         MolecularIntegrals, create_beh2_hamiltonian,
                         create_ch4_hamiltonian, create_h2_hamiltonian,
@@ -12,7 +12,7 @@ from .spin import (HeisenbergHamiltonian, TransverseFieldIsing,
                    extract_coeffs_and_paulis, pack_spin_state, spin_state_int)
 
 __all__ = [
-    "Hamiltonian", "MolecularIntegrals", "MolecularHamiltonian",
+    "Hamiltonian", "PauliString", "MolecularIntegrals", "MolecularHamiltonian",
     "MOLECULE_FACTORIES",
     "create_h2_hamiltonian", "create_lih_hamiltonian",
     "create_h2o_hamiltonian", "create_beh2_hamiltonian",

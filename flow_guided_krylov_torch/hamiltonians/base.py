@@ -21,7 +21,7 @@ import torch
 
 from ..ops.bits import _SIGN_FLIP, join2, keys_device, split2, unkey_device
 
-__all__ = ["Hamiltonian", "lex_order"]
+__all__ = ["Hamiltonian", "PauliString", "lex_order"]
 
 
 def lex_order(keys: torch.Tensor) -> torch.Tensor:
@@ -237,3 +237,49 @@ class Hamiltonian(ABC):
         vals, vecs = spla.eigsh(M, k=max(k, 2), which="SA", v0=v0)
         idx = np.argsort(vals)
         return vals[idx][:k], vecs[:, idx][:, :k]
+
+
+class PauliString:
+    """A Pauli word (I/X/Y/Z per qubit) acting on packed full bitstrings.
+
+    A copy of the JAX package's ``hamiltonians/base.py::PauliString``
+    (host Python).  Qubit q in state b: X flips it, Z phases it by
+    (-1)^b, and Y uses the standard convention Y|0> = i|1>,
+    Y|1> = -i|0>.
+    """
+
+    def __init__(self, paulis: str, coefficient: complex = 1.0):
+        self.paulis = paulis.upper()
+        self.coefficient = complex(coefficient)
+        if set(self.paulis) - set("IXYZ"):
+            raise ValueError(f"invalid Pauli string {paulis!r}")
+        self.x_mask = 0
+        self.z_mask = 0
+        for q, p in enumerate(self.paulis):
+            if p in "XY":
+                self.x_mask |= (1 << q)
+            if p in "ZY":
+                self.z_mask |= (1 << q)
+        self.n_y = sum(1 for p in self.paulis if p == "Y")
+
+    @property
+    def is_diagonal(self) -> bool:
+        return self.x_mask == 0
+
+    def apply(self, state: int) -> Tuple[int, complex]:
+        """Return (new_state, phase) for P|state>."""
+        new_state = state ^ self.x_mask
+        # phase: product over qubits; standard formula
+        # <new|P|state> = i^{n_y} * (-1)^{popcount(state & z_mask)} * (-i)^{...}
+        # Derive directly: X: 1; Z: (-1)^b; Y on bit b: b=0 -> i, b=1 -> -i.
+        phase = self.coefficient
+        for q, p in enumerate(self.paulis):
+            b = (state >> q) & 1
+            if p == "Z":
+                phase *= (-1) ** b
+            elif p == "Y":
+                phase *= (1j if b == 0 else -1j)
+        return new_state, phase
+
+    def __repr__(self) -> str:
+        return f"PauliString({self.paulis!r}, {self.coefficient})"

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from itertools import combinations
 from math import comb
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +23,7 @@ from ..chem import MolecularIntegrals, compute_molecular_integrals
 from ..ops.slater import (SlaterTables, build_tables, connections_batch_np,
                           diagonal_batch, diagonal_batch_np,
                           make_connection_fn_auto)
-from .base import Hamiltonian
+from .base import Hamiltonian, PauliString
 
 __all__ = [
     "MolecularIntegrals", "MolecularHamiltonian",
@@ -269,6 +269,94 @@ class MolecularHamiltonian(Hamiltonian):
         except OSError:
             pass
         return self._fci_cache[0]
+
+    def fci_state(self) -> Tuple[float, np.ndarray, np.ndarray]:
+        if self._fci_cache is None:
+            # the disk cache holds the energy only — the state needs a
+            # real solve
+            vals, vecs, basis = self.exact_full(k=1)
+            self._fci_cache = (float(vals[0]), vecs[:, 0], basis)
+        return self._fci_cache
+
+    # ------------------------------------------------------------------
+    # Pauli-word export (for the Krylov circuit sampler interface)
+    # ------------------------------------------------------------------
+
+    def to_pauli_strings(self, threshold: float = 1e-10) -> List[PauliString]:
+        """Jordan-Wigner Pauli decomposition (one-body + diagonal two-body).
+
+        A copy of the JAX package's: full one-body terms and the diagonal
+        (number-number) part of the two-body interaction; used by the
+        circuit-sampling integration point, not the main pipeline.
+        """
+        n = self.n_orbitals
+        nq = self.n_sites
+        h1 = self.integrals.h1e
+        terms: dict = {}
+
+        def add(word: str, coef: complex):
+            if abs(coef) < threshold:
+                return
+            terms[word] = terms.get(word, 0.0) + coef
+
+        ident = "I" * nq
+        add(ident, self.integrals.nuclear_repulsion)
+
+        for spin_off in (0, n):
+            for p in range(n):
+                q_p = p + spin_off
+                # number operator: n_p = (I - Z_p)/2
+                add(ident, 0.5 * h1[p, p])
+                w = list(ident)
+                w[q_p] = "Z"
+                add("".join(w), -0.5 * h1[p, p])
+                for q in range(p + 1, n):
+                    if abs(h1[p, q]) < threshold:
+                        continue
+                    q_q = q + spin_off
+                    # hopping: h_pq (a+_p a_q + h.c.)
+                    #   = h_pq/2 (X_p Z.. X_q + Y_p Z.. Y_q)
+                    for op in ("X", "Y"):
+                        w = list(ident)
+                        w[q_p] = op
+                        w[q_q] = op
+                        for z in range(q_p + 1, q_q):
+                            w[z] = "Z"
+                        add("".join(w), 0.5 * h1[p, q])
+
+        # diagonal two-body: 1/2 sum J_pq N_p N_q - 1/2 K same-spin,
+        # expressed via n_p n_q -> (I - Z_p - Z_q + Z_p Z_q)/4
+        jmat, kmat = self.tables.jmat, self.tables.kmat
+
+        def add_nn(qa: int, qb: int, coef: float):
+            if qa == qb:
+                # n^2 = n for fermions
+                add(ident, 0.5 * coef)
+                w = list(ident)
+                w[qa] = "Z"
+                add("".join(w), -0.5 * coef)
+                return
+            add(ident, 0.25 * coef)
+            for qq in (qa, qb):
+                w = list(ident)
+                w[qq] = "Z"
+                add("".join(w), -0.25 * coef)
+            w = list(ident)
+            w[qa] = "Z"
+            w[qb] = "Z"
+            add("".join(w), 0.25 * coef)
+
+        for p in range(n):
+            for q in range(n):
+                for so1 in (0, n):
+                    for so2 in (0, n):
+                        coef = 0.5 * jmat[p, q]
+                        if so1 == so2:
+                            coef -= 0.5 * kmat[p, q]
+                        add_nn(p + so1, q + so2, coef)
+
+        return [PauliString(w, c) for w, c in terms.items()
+                if abs(c) > threshold]
 
 
 # ---------------------------------------------------------------------------

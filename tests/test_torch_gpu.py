@@ -661,3 +661,51 @@ def test_multiword_de2_on_card_matches_host(card, model):
     host = exp._pt2_correction_host(basis, coeffs, e)
     assert a["n_external"] == host["n_external"]
     assert abs(a["de2"] - host["de2"]) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The entry points on the card
+# ---------------------------------------------------------------------------
+
+def test_bench_line_on_card(card, monkeypatch, tmp_path):
+    """``bench``'s one JSON line on the card, with ``bench.py``'s keys;
+    the walls to chemical accuracy on LiH and H2O (the N2 and CH4 FCI
+    oracles take a minute on the host, ``chip_smoke.py`` runs those)."""
+    import json
+    from flow_guided_krylov_torch.examples import bench
+    monkeypatch.setenv("FGK_INTEGRAL_CACHE", str(tmp_path))
+    tta = bench.time_to_accuracy
+    monkeypatch.setattr(bench, "time_to_accuracy",
+                        lambda m, device: tta({"n2": "lih",
+                                               "ch4": "h2o"}[m], device))
+    line = bench.bench("cuda")
+    assert list(line) == list(bench.BENCH_KEYS)
+    assert line["kernel"] == "ops/slater.py::make_connection_fn"
+    assert line["value"] > 0 and line["vs_baseline"] > 0
+    for m in ("n2", "ch4"):
+        assert line[f"{m}_time_to_chemacc_s"] is not None
+        assert line[f"{m}_error_mha"] < 1.6
+    json.dumps(line)
+
+
+def test_pt2_only_run_on_card_equals_cpu(card, monkeypatch, tmp_path):
+    from flow_guided_krylov_torch.examples import benchmark
+    monkeypatch.setenv("FGK_INTEGRAL_CACHE", str(tmp_path))
+    got = benchmark.pt2_only_run("lih", device="cuda")
+    want = benchmark.pt2_only_run("lih", device="cpu")
+    assert got["nf_basis_size"] == want["nf_basis_size"]
+    assert abs(got["final_energy"] - want["final_energy"]) < 1e-8
+    assert got["chemical_accuracy"]
+
+
+@pytest.mark.parametrize("model,n,h", [("tfim", 12, 0.5),
+                                       ("heisenberg", 12, 0.1),
+                                       ("heisenberg", 15, 0.1)])
+def test_exact_oracle_equal_on_both_devices(card, model, n, h):
+    """The lattice CLI's oracle is host code on either device's
+    Hamiltonian: the Pauli-word build to 14 sites, ``eigsh`` above."""
+    from flow_guided_krylov_torch.examples import \
+        skqd_lattice_validation as lat
+    e = {dev: lat.exact_oracle(lat.make_hamiltonian(model, n, h, dev)[0])
+         for dev in ("cuda", "cpu")}
+    assert abs(e["cuda"] - e["cpu"]) < 1e-10

@@ -44,5 +44,51 @@ def test_the_walk_sees_the_port():
                  ("flows", "physics_guided_training.py"),
                  ("flows", "discrete.py"), ("flows", "spin_training.py"),
                  ("postprocessing", "diversity_selection.py"),
-                 ("utils", "profiling.py"), ("utils", "system_scaler.py")):
+                 ("utils", "profiling.py"), ("utils", "system_scaler.py"),
+                 ("chem", "ccsd.py"), ("ops", "brute_force.py"),
+                 ("postprocessing", "projected_hamiltonian.py"),
+                 ("postprocessing", "utils.py")) + tuple(
+                     ("examples", m + ".py") for m in EXAMPLES):
         assert os.path.join("flow_guided_krylov_torch", *part) in names
+
+
+EXAMPLES = ("__init__", "benchmark", "bench", "large_system_benchmark",
+            "moderate_system_benchmark", "skqd_lattice_validation",
+            "skqd_validation", "skqd_necessity_test", "graft_entry")
+
+
+@pytest.fixture(scope="module")
+def imported_without_jax():
+    """Import every CLI module in one process that cannot import JAX or
+    the JAX package (a meta-path finder refuses them), as on the card's
+    machine: {module: error or None}."""
+    import subprocess
+    import sys
+    code = (
+        "import importlib, json, sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "out = {}\n"
+        "for name in sys.argv[1:]:\n"
+        "    try:\n"
+        "        m = importlib.import_module(\n"
+        "            'flow_guided_krylov_torch.examples.' + name)\n"
+        "        out[name] = None if callable(getattr(m, 'main', None)) \\\n"
+        "            else 'no main'\n"
+        "    except Exception as exc:\n"
+        "        out[name] = repr(exc)\n"
+        "print(json.dumps(out))\n")
+    out = subprocess.run([sys.executable, "-c", code, *EXAMPLES[1:]],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    import json
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", EXAMPLES[1:])
+def test_entry_points_import_without_jax(name, imported_without_jax):
+    assert imported_without_jax[name] is None, imported_without_jax[name]
