@@ -38,7 +38,18 @@ statevector):
    Selected-CI, SKQD or its skip rule), checked against FCI; then one
    batch's local energies through the dense, table and on-the-fly routes,
    two same-seed stage-1 runs bit for bit, and one step under
-   ``torch.profiler``;
+   ``torch.profiler``; the run writes its stage checkpoints, and a
+   second pipeline resumes from them with ``run(resume=True)`` and no
+   FCI oracle, so stage 4 (the dense propagator) runs on the restored
+   stage-3 basis;
+6b. the subspace-energy pipeline on N2 through
+   ``PipelineConfig(seed=0, use_local_energy=False)`` at the same tier,
+   through the tier's own epochs (``FlowNQSTrainer``: the projected H of
+   up to 16,288 rows grown on the card), checked against FCI; two
+   same-seed stage-1 runs bit for bit, and ``InferenceNQSTrainer``
+   retraining a fresh [512]*5 NQS on the run's stage-3 basis; then every
+   NQS model beyond the float32 ReLU DenseNQS and the orbital scorer at the
+   tier's widths on 4,000 rows, the card against the CPU;
 7. spin SKQD on TFIM-24 through the lattice CLI's ``run_large_spin``
    (h = 0.5, K = 10, 100k shots, ``auto`` -> Trotter through the x_sweep
    kernel, no plain rotation on the card),
@@ -719,6 +730,76 @@ def profile_step(trainer, reps=20):
             "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
 
 
+def checkpoint_dir(molecule):
+    """An empty directory for the pipeline's stage checkpoints, under the
+    smoke's cache directory."""
+    root = os.environ.get("FGK_INTEGRAL_CACHE",
+                          os.path.join(ROOT, ".fgk_cache"))
+    path = os.path.join(root, f"checkpoints_{molecule}")
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def resume_run(h, fci, ckdir, first, sync):
+    """``run(resume=True)`` from the first run's stage files, as a user
+    without an oracle runs it (``exact_energy=None``: the FCI-gap skip
+    rule cannot fire, so stage 4 runs on the restored stage-3 basis).
+    Checked: stages 1-3 resumed, the stage-3 energy the first run's to
+    1e-10, the final energy variational and under 1.6 mHa against FCI;
+    its main path's kernel counts are read around it."""
+    import torch
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    pipe = FlowGuidedKrylovPipeline(
+        h, PipelineConfig(seed=0, checkpoint_dir=ckdir, verbose=False))
+    # ---- the main path: the resumed run, kernel counts read around it ----
+    ell.ell_spmv_cuda.launches = 0
+    xs.x_sweep_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.run(resume=True)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"ell_spmv": ell.ell_spmv_cuda.launches,
+                "x_sweep": xs.x_sweep_cuda.launches}
+    # ---------------------------------------------------------------------
+    r, r1 = pipe.results, first.results
+    s4, s4_first = r["stage4"], r1["stage4"]
+    res = {"wall_s": wall, "files": sorted(os.listdir(ckdir)),
+           "resumed": {k: r[k].get("resumed") for k in
+                       ("stage1", "stage2", "stage3")},
+           "stage_walls_s": {k: v["total_s"]
+                             for k, v in pipe.timer.summary().items()},
+           "stage4": s4.get("reason", "ran"),
+           "stage4_first_run": s4_first.get("reason", "ran"),
+           "stage4_wall_s": pipe.timer.spans["stage4_skqd"],
+           "stage4_first_wall_s": first.timer.spans["stage4_skqd"],
+           "skqd_energy": s4["skqd_energy"],
+           "skqd_energy_first_run": s4_first["skqd_energy"],
+           "stage3_energy_diff": (r["stage3"]["energy"]
+                                  - r1["stage3"]["energy"]),
+           "final_error_mha": 1000 * (out["final_energy"] - fci),
+           "first_final_error_mha": r1["summary"]["error_mha"],
+           "kernel_launches": launches}
+    if not all(res["resumed"].values()):
+        raise RuntimeError(f"resume restored {res['resumed']}")
+    if not abs(res["stage3_energy_diff"]) <= 1e-10:
+        raise RuntimeError(f"resumed stage 3 {r['stage3']['energy']} != "
+                           f"{r1['stage3']['energy']}")
+    # without an oracle only a basis under 300 rows skips stage 4
+    if s4.get("skipped") and r["stage3"]["basis_size"] >= 300:
+        raise RuntimeError(f"resumed stage 4 skipped: {s4['reason']}")
+    if not (out["final_energy"] >= fci - 1e-6
+            and res["final_error_mha"] < 1.6):
+        raise RuntimeError(f"resumed final error {res['final_error_mha']} "
+                           f"mHa (variational, < 1.6 expected)")
+    del pipe
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
                    repro_epochs=20):
     """The molecular pipeline through its entry point,
@@ -727,9 +808,11 @@ def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
     up to 600 epochs, basis cap 12,288, diversity cap 8,192).  Checked:
     the particle-conservation audit, stage 2 variational against FCI,
     stage 3 no higher than stage 2, the final error, the JAX pipeline's
-    results keys; then one batch's local energies through the three
-    routes, two same-seed stage-1 runs bit for bit, and one profiled
-    step.  ``max_epochs`` cuts the epoch count (None: the tier's)."""
+    results keys; then (``resume_run``) a second pipeline resumes from
+    the run's stage checkpoints without an oracle and runs stage 4; then
+    one batch's local energies through the three routes, two same-seed
+    stage-1 runs bit for bit, and one profiled step.  ``max_epochs`` cuts
+    the epoch count (None: the tier's)."""
     import numpy as np
     import torch
     from flow_guided_krylov_torch.hamiltonians import MOLECULE_FACTORIES
@@ -745,8 +828,9 @@ def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
 
     h = MOLECULE_FACTORIES[molecule](device)
     fci = h.fci_energy()                 # the oracle phase_slice cached
-    pipe = FlowGuidedKrylovPipeline(h, PipelineConfig(seed=0),
-                                    exact_energy=fci)
+    ckdir = checkpoint_dir(molecule)
+    pipe = FlowGuidedKrylovPipeline(
+        h, PipelineConfig(seed=0, checkpoint_dir=ckdir), exact_energy=fci)
     if max_epochs is not None:
         pipe.config.max_epochs = max_epochs
 
@@ -803,6 +887,7 @@ def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
                            f"{out['nf_energy']}")
     if not abs(out["error_mha"]) < 1.6:
         raise RuntimeError(f"pipeline error {out['error_mha']} mHa >= 1.6")
+    res["resume"] = resume_run(h, fci, ckdir, pipe, sync)
 
     # ---- checks and timings outside the counted run ----------------------
     e = route_energies(trainer)
@@ -828,6 +913,275 @@ def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
     if cuda:
         res["step_profile"] = profile_step(trainer)
     print("pipeline: " + json.dumps(res))
+    return res
+
+
+def subspace_stage1_twice(h, epochs):
+    """Stage 1 in ``subspace_energy`` mode alone, twice from seed 0 at the
+    pipeline's widths for ``epochs`` epochs: (equal energies, equal
+    bases)."""
+    import numpy as np
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    runs = []
+    for _ in range(2):
+        pipe = FlowGuidedKrylovPipeline(h, PipelineConfig(
+            seed=0, use_local_energy=False, verbose=False))
+        pipe.config.max_epochs = epochs
+        pipe.train_flow_nqs()
+        runs.append((pipe.results["stage1"]["history"]["energies"],
+                     pipe.trainer.cache.basis))
+        del pipe
+    (e0, b0), (e1, b1) = runs
+    return e0 == e1, np.array_equal(b0, b1)
+
+
+def inference_retrain(h, basis, e_basis, hidden):
+    """``InferenceNQSTrainer`` with a fresh ``DenseNQS`` at ``hidden`` on a
+    fixed basis: its energies, halvings and wall; checked never below the
+    basis's exact ground energy ``e_basis`` - 1e-6, and non-increasing to
+    its plateau: the mean of each ``patience``-epoch window no higher
+    than the window before it (Adam's single epochs may rise)."""
+    import numpy as np
+    from flow_guided_krylov_torch.flows import InferenceNQSTrainer
+    from flow_guided_krylov_torch.models import DenseNQS
+    t0 = time.perf_counter()
+    tr = InferenceNQSTrainer(h, DenseNQS(2 * h.n_orbitals, hidden), basis)
+    t_build = time.perf_counter() - t0
+    e = np.array(tr.train()["energies"])
+    wall = time.perf_counter() - t0
+    w = tr.patience
+    means = [e[i:i + w].mean() for i in range(0, len(e) - w + 1, w)]
+    rises = int((np.diff(e) > 0).sum())
+    res = {"rows": len(basis), "epochs": len(e), "wall_s": wall,
+           "h_build_s": t_build, "lr_schedule": tr.lr_schedule,
+           "first": float(e[0]), "last": float(e[-1]),
+           "min_error_mha": 1000 * (float(e.min()) - e_basis),
+           "epochs_that_rose": rises,
+           "window_means_non_increasing": bool(
+               np.all(np.diff(means) <= 1e-6))}
+    if not e.min() >= e_basis - 1e-6:
+        raise RuntimeError(f"retrained NQS {e.min()} below the basis's "
+                           f"ground energy {e_basis}")
+    if not (res["window_means_non_increasing"] and e[-1] < e[0]):
+        raise RuntimeError(f"retraining energy rose: {res}")
+    return res
+
+
+def profile_epoch(trainer, reps=20):
+    """Warm subspace-energy epochs on the run's final basis: the median
+    host wall of ``reps`` epochs (each ends in its energy read), then one
+    epoch under ``utils.trace`` (torch.profiler, its Chrome trace written
+    under the smoke's cache directory): device time, busy share, device
+    operations and the top 5 kernels."""
+    import torch
+    from flow_guided_krylov_torch.utils import trace
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        trainer._epoch()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    epoch_ms = statistics.median(walls)
+    root = os.environ.get("FGK_INTEGRAL_CACHE",
+                          os.path.join(ROOT, ".fgk_cache"))
+    with trace(os.path.join(root, "trace_subspace_epoch")) as prof:
+        trainer._epoch()
+    dev_us, ops = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = ev.device_time_total
+            ops += ev.count
+    total = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    return {"epoch_ms": epoch_ms, "rows": len(trainer.cache),
+            "device_ms": total, "busy_share": total / epoch_ms,
+            "device_ops": ops,
+            "top_kernels_ms": {k[:60]: v / 1e3 for k, v in top}}
+
+
+def phase_subspace(device="cuda", molecule="n2", max_epochs=None,
+                   repro_epochs=20):
+    """The subspace-energy pipeline through its entry point,
+    ``FlowGuidedKrylovPipeline(h, PipelineConfig(seed=0,
+    use_local_energy=False)).run()``: on N2 the large tier at full width
+    (NQS [512]*5, flow [256, 256], 4,000 samples an epoch, basis cap
+    12,288: the cache grows to at most 12,288 + 4,000 rows within the
+    space's 14,400, each prune cuts it to 11,059) through the tier's own
+    epochs and patience.  Checked: stage 1 in ``subspace_energy`` mode,
+    stage 2 variational against FCI, stage 3 no higher than stage 2, the
+    final error under 1.6 mHa; then one profiled epoch, two same-seed
+    stage-1 runs bit for bit, and ``InferenceNQSTrainer`` on the run's
+    stage-3 basis.  ``max_epochs`` cuts the epochs (None: the tier's)."""
+    import statistics as st
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import MOLECULE_FACTORIES
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    from flow_guided_krylov_torch.utils import device_memory_stats
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    h = MOLECULE_FACTORIES[molecule](device)
+    fci = h.fci_energy()
+    pipe = FlowGuidedKrylovPipeline(
+        h, PipelineConfig(seed=0, use_local_energy=False), exact_energy=fci)
+    if max_epochs is not None:
+        pipe.config.max_epochs = max_epochs
+
+    # ---- the main path: the four stages, kernel counts read around it ---
+    ell.ell_spmv_cuda.launches = 0
+    xs.x_sweep_cuda.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pipe.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"ell_spmv": ell.ell_spmv_cuda.launches,
+                "x_sweep": xs.x_sweep_cuda.launches}
+    # ---------------------------------------------------------------------
+
+    r = pipe.results
+    trainer = pipe.trainer
+    hist = r["stage1"]["history"]
+    mem = device_memory_stats()
+    res = {"molecule": molecule, "n_valid": pipe.n_valid,
+           "mode": r["stage1"]["mode"],
+           "nqs_hidden_dims": pipe.config.nqs_hidden_dims,
+           "nf_hidden_dims": pipe.config.nf_hidden_dims,
+           "samples_per_batch": pipe.config.samples_per_batch,
+           "max_epochs": pipe.config.max_epochs,
+           "basis_cap": trainer.config.max_basis_size,
+           "wall_s": wall,
+           "stage_walls_s": {k: v["total_s"]
+                             for k, v in pipe.timer.summary().items()},
+           "epochs": len(hist["energies"]),
+           "median_epoch_ms": 1e3 * st.median(hist["epoch_times"]),
+           "first_epoch_ms": 1e3 * hist["epoch_times"][0],
+           "stage1_final_energy_error_mha":
+               1000 * (hist["energies"][-1] - fci),
+           "cache_rows": len(trainer.cache),
+           "cache_peak_rows": trainer.cache.peak_rows,
+           "cache_device_bytes": trainer.cache.device_bytes,
+           "device_memory": mem,
+           "nf_basis_size": out["nf_basis_size"],
+           "nf_error_mha": 1000 * (out["nf_energy"] - fci),
+           "residual_basis_size": out["residual_basis_size"],
+           "residual_error_mha": 1000 * (out["residual_energy"] - fci),
+           "stage3_iterations": r["stage3"]["n_iterations"],
+           "stage4": r["stage4"].get("reason", "ran"),
+           "error_mha": out["error_mha"],
+           "kernel_launches": launches}
+    if res["mode"] != "subspace_energy":
+        raise RuntimeError(f"stage 1 ran in mode {res['mode']}")
+    missing = [k for k in PIPELINE_KEYS if k not in out]
+    if missing:
+        raise RuntimeError(f"results lack the JAX pipeline's keys {missing}")
+    if not out["nf_energy"] >= fci - 1e-6:
+        raise RuntimeError(f"stage 2 {out['nf_energy']} below FCI {fci}")
+    if not out["residual_energy"] <= out["nf_energy"] + 1e-12:
+        raise RuntimeError(f"stage 3 {out['residual_energy']} above stage 2 "
+                           f"{out['nf_energy']}")
+    if not abs(out["error_mha"]) < 1.6:
+        raise RuntimeError(f"subspace pipeline error {out['error_mha']} mHa "
+                           f">= 1.6")
+
+    # ---- checks and timings outside the counted run ---------------------
+    if cuda:
+        res["epoch_profile"] = profile_epoch(trainer)
+    stage3_basis = r["stage3"]["basis"]
+    e_basis = r["stage3"]["energy"]
+    hidden = tuple(pipe.config.nqs_hidden_dims)
+    del pipe, trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    same_e, same_b = subspace_stage1_twice(h, repro_epochs)
+    res["stage1_reproducible"] = {"epochs": repro_epochs,
+                                  "energies_equal": same_e,
+                                  "basis_equal": same_b}
+    if not (same_e and same_b):
+        raise RuntimeError(f"two subspace stage-1 runs from seed 0 differ: "
+                           f"{res['stage1_reproducible']}")
+    res["inference"] = inference_retrain(h, stage3_basis, e_basis, hidden)
+    print("subspace pipeline: " + json.dumps(res))
+    return res
+
+
+# the models' forwards, card against CPU: float32 networks of 5 layers of
+# 512 in another summation order (of the output's largest magnitude), and
+# the bfloat16 trunk (8 mantissa bits, rounded a layer)
+MODEL_F32_RTOL, MODEL_BF16_RTOL = 1e-5, 2e-2
+
+
+def phase_models(device="cuda", rows=4000):
+    """Each NQS model beyond the float32 ReLU ``DenseNQS``, and the orbital
+    scorer, at the N2 large tier's widths (NQS [512]*5 over 20 sites, the
+    RBM with 512 hidden units, the scorer at the flow's [256, 256]) on one
+    4,000-row batch of N2 occupations: the card's log-amplitudes and
+    phases against the CPU's from the same weights, and the card's time
+    a forward."""
+    import copy
+    import torch
+    from flow_guided_krylov_torch.flows import OrbitalScoringNetwork
+    from flow_guided_krylov_torch.models import (ComplexNQS, DenseNQS,
+                                                 RBMQuantumState,
+                                                 SignedDenseNQS)
+    n_orbitals = 10                 # N2/STO-3G
+    n = 2 * n_orbitals
+    wide = (512,) * 5
+    g = torch.Generator().manual_seed(0)
+    models = {
+        "DenseNQS(gelu)": (DenseNQS(n, wide, activation="gelu",
+                                    generator=g), MODEL_F32_RTOL),
+        "DenseNQS(complex_output)": (DenseNQS(n, wide, complex_output=True,
+                                              generator=g), MODEL_F32_RTOL),
+        "DenseNQS(bfloat16)": (DenseNQS(n, wide, generator=g,
+                                        compute_dtype=torch.bfloat16),
+                               MODEL_BF16_RTOL),
+        "SignedDenseNQS": (SignedDenseNQS(n, wide, generator=g),
+                           MODEL_F32_RTOL),
+        "ComplexNQS": (ComplexNQS(n, wide, generator=g), MODEL_F32_RTOL),
+        "RBMQuantumState": (RBMQuantumState(n, 512, generator=g),
+                            MODEL_F32_RTOL),
+        "RBMQuantumState(complex)": (RBMQuantumState(
+            n, 512, complex_weights=True, generator=g), MODEL_F32_RTOL),
+        "OrbitalScoringNetwork": (OrbitalScoringNetwork(
+            n_orbitals, (256, 256), generator=g), MODEL_F32_RTOL)}
+    gen = torch.Generator().manual_seed(1)
+    occ = torch.zeros(rows, n)
+    for half in (0, n_orbitals):   # 7 electrons a channel, as N2's
+        pick = torch.rand(rows, n_orbitals, generator=gen).argsort(-1)[:, :7]
+        occ[:, half:half + n_orbitals].scatter_(1, pick, 1.0)
+    x_dev = occ.to(device)
+    res = {}
+    for name, (cpu, tol) in models.items():
+        dev = copy.deepcopy(cpu).to(device)
+        scorer = isinstance(cpu, OrbitalScoringNetwork)
+        x_c = occ[:, :n_orbitals] if scorer else occ
+        x_d = x_dev[:, :n_orbitals] if scorer else x_dev
+        with torch.no_grad():
+            pairs = {"log_amp": (cpu(x_c), dev(x_d).cpu())}
+            if not scorer:
+                pairs["phase"] = (cpu.phase(x_c), dev.phase(x_d).cpu())
+            ms = (_median_ms(lambda: dev(x_d), 20)
+                  if device == "cuda" else None)
+        row = {"tolerance": tol, "ms": ms}
+        for key, (a, b) in pairs.items():
+            finite = torch.isfinite(a)
+            if not torch.equal(finite, torch.isfinite(b)):
+                raise RuntimeError(f"{name} {key}: -inf pattern differs")
+            scale = max(1.0, float(a[finite].abs().max()))
+            err = float((a[finite] - b[finite]).abs().max()) / scale
+            row[key + "_rel_err"] = err
+            if not err <= tol:
+                raise RuntimeError(f"{name} {key}: card vs CPU {err} > {tol}")
+        res[name] = row
+    print("models card vs cpu: " + json.dumps(res))
     return res
 
 
@@ -2466,6 +2820,8 @@ def main():
     # of epochs 200 and 400 (tens of seconds each) make room for the
     # phases below
     phase_pipeline(max_epochs=200)
+    phase_subspace()
+    phase_models()
     spin = phase_spin()
     sector = phase_sector()
     restricted = phase_restricted()

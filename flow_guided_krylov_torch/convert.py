@@ -19,8 +19,11 @@ from .ops.excitations import ExcitationSpec
 from .ops.slater import SlaterTables
 
 __all__ = ["tables_from_jax", "ell_from_jax", "spin_hamiltonian_from_jax",
-           "dense_nqs_state_dict", "particle_flow_state_dict",
-           "sz_flow_state_dict", "discrete_flow_state_dict"]
+           "dense_nqs_state_dict", "complex_nqs_state_dict",
+           "rbm_state_dict", "orbital_scorer_state_dict",
+           "particle_flow_state_dict", "sz_flow_state_dict",
+           "discrete_flow_state_dict", "adam_state_dict",
+           "load_trainer_from_jax"]
 
 _TABLE_FIELDS = ("n_orb", "n_alpha", "n_beta", "e_nuc", "h1", "h2", "jj",
                  "ex", "jmat", "kmat", "spec_a", "spec_b", "ab_grid")
@@ -97,14 +100,48 @@ def _linear(prefix: str, dense: Dict) -> Dict[str, torch.Tensor]:
             prefix + "bias": torch.tensor(np.asarray(dense["bias"]))}
 
 
-def dense_nqs_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
-    """A flax ``DenseNQS`` params tree -> the port's ``DenseNQS``
-    ``state_dict`` (``Dense_i`` -> ``dense.i``)."""
-    p = _flax_params(tree)
-    n_dense = sum(1 for k in p if k.startswith("Dense_"))
-    out = {"log_amp_scale": torch.tensor(np.asarray(p["log_amp_scale"]))}
-    for i in range(n_dense):
+def _dense_layers(p: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``Dense_i`` -> ``dense.i`` for every i."""
+    out = {}
+    for i in range(sum(1 for k in p if k.startswith("Dense_"))):
         out.update(_linear(f"dense.{i}.", p[f"Dense_{i}"]))
+    return out
+
+
+def dense_nqs_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``DenseNQS`` or ``SignedDenseNQS`` params tree -> the port's
+    model's ``state_dict`` (``Dense_i`` -> ``dense.i``).
+
+    A ``SignedDenseNQS`` tree that flax created through
+    ``init(..., method=phase)`` has no ``log_amp_scale`` (its ``__call__``
+    then raises ``ScopeParamNotFoundError``); the state dict lacks it too,
+    so a strict ``load_state_dict`` refuses it (ROADMAP.md, Queue 3)."""
+    p = _flax_params(tree)
+    out = _dense_layers(p)
+    if "log_amp_scale" in p:
+        out["log_amp_scale"] = torch.tensor(np.asarray(p["log_amp_scale"]))
+    return out
+
+
+def complex_nqs_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``ComplexNQS`` params tree -> the port's ``ComplexNQS``
+    ``state_dict`` (trunk and both heads, ``Dense_i`` -> ``dense.i``)."""
+    return _dense_layers(_flax_params(tree))
+
+
+def rbm_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``RBMQuantumState`` params tree -> the port's
+    ``state_dict`` (the same names)."""
+    return {k: torch.tensor(np.asarray(v))
+            for k, v in _flax_params(tree).items()}
+
+
+def orbital_scorer_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``OrbitalScoringNetwork`` params tree -> the port's
+    ``state_dict`` (``Dense_i`` -> ``dense.i``, ``prior_logits``)."""
+    p = _flax_params(tree)
+    out = _dense_layers(p)
+    out["prior_logits"] = torch.tensor(np.asarray(p["prior_logits"]))
     return out
 
 
@@ -138,3 +175,44 @@ def discrete_flow_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
             out.update(_linear(f"couplings.{i}.dense.{j}.",
                                p[f"coupling_{i}"][f"Dense_{j}"]))
     return out
+
+
+def _adam_state(state: Any):
+    """The optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
+    optimizer state of nested tuples."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, tuple):
+        for sub in state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_dict(opt_state: Any, to_state_dict, module: torch.nn.Module
+                    ) -> Dict[str, Any]:
+    """An optax state holding one ``ScaleByAdamState`` (``chain(clip,
+    adam)``, ``chain(clip, adamw(...))``) -> the port's ``OptaxAdamW``
+    state for ``module``'s parameters: the moments as lists in
+    ``module.parameters()`` order (``to_state_dict`` converts a moment
+    tree as it converts the params tree), and the count."""
+    st = _adam_state(opt_state)
+    if st is None:
+        raise ValueError("no ScaleByAdamState in the optimizer state")
+    mu, nu = to_state_dict(st.mu), to_state_dict(st.nu)
+    names = [name for name, _ in module.named_parameters()]
+    return {"mu": [mu[n] for n in names], "nu": [nu[n] for n in names],
+            "count": int(np.asarray(st.count))}
+
+
+def load_trainer_from_jax(trainer, jax_trainer) -> None:
+    """Start a port ``FlowNQSTrainer`` or ``PhysicsGuidedFlowTrainer``
+    (particle flow + ``DenseNQS``) from a JAX trainer of the same class
+    and widths: both networks' params and both Adam states."""
+    for name, conv in (("flow", particle_flow_state_dict),
+                       ("nqs", dense_nqs_state_dict)):
+        module = getattr(trainer, name)
+        module.load_state_dict(conv(getattr(jax_trainer, name + "_params")))
+        getattr(trainer, name + "_opt").load_state_dict(adam_state_dict(
+            getattr(jax_trainer, name + "_opt_state"), conv, module))

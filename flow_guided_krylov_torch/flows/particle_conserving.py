@@ -14,8 +14,9 @@ on them and weights map one to one: ``beta_h0`` reads
 
 :class:`SzConservingFlow` is the spin analog of the alpha channel: k-hot
 configurations of n sites from learnable site logits, for spin
-Hamiltonians that conserve total S_z.  ``OrbitalScoringNetwork`` is not
-ported yet.
+Hamiltonians that conserve total S_z.  :class:`OrbitalScoringNetwork`
+is the standalone per-orbital scorer and :class:`GumbelTopK` an object
+holding a temperature over :func:`gumbel_topk`.
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.dense import lecun_normal_
+from ..models.dense import lecun_normal_, mlp_layers
 
-__all__ = ["ParticleConservingFlow", "SzConservingFlow", "gumbel_topk",
-           "verify_particle_conservation"]
+__all__ = ["ParticleConservingFlow", "ParticleConservingFlowSampler",
+           "SzConservingFlow", "gumbel_topk", "GumbelTopK",
+           "OrbitalScoringNetwork", "verify_particle_conservation"]
 
 
 def _gumbel_uniforms(shape, generator: Optional[torch.Generator],
@@ -42,15 +44,20 @@ def _gumbel_uniforms(shape, generator: Optional[torch.Generator],
 
 def gumbel_topk(logits: torch.Tensor, k: int, temperature,
                 generator: Optional[torch.Generator] = None,
-                uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                uniforms: Optional[torch.Tensor] = None,
+                hard: bool = True) -> torch.Tensor:
     """Differentiable k-hot sample: (B, n) logits -> (B, n) mask with k ones.
 
     Straight-through: the hard k-hot mask forward, the softmax's gradient
-    backward.  ``uniforms`` (B, n) replaces the draw from ``generator``.
+    backward.  ``hard=False`` returns the tempered softmax of the perturbed
+    logits instead.  ``uniforms`` (B, n) replaces the draw from
+    ``generator``.
     """
     u = (uniforms if uniforms is not None
          else _gumbel_uniforms(logits.shape, generator, logits.device))
     z = (logits - torch.log(-torch.log(u))) / temperature
+    if not hard:
+        return torch.softmax(z, -1)
     idx = torch.topk(z, k, dim=-1).indices
     one_hot = torch.zeros_like(logits).scatter_(-1, idx, 1.0)
     soft = torch.softmax(z, -1) * one_hot
@@ -178,6 +185,65 @@ class SzConservingFlow(nn.Module):
                                eps: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
         return torch.exp(self.log_prob(configs))
+
+
+# the JAX package's name for the flow as a sampler (an alias there too)
+ParticleConservingFlowSampler = ParticleConservingFlow
+
+
+class OrbitalScoringNetwork(nn.Module):
+    """Standalone per-orbital scorer: (B, n_orbitals) occupations ->
+    (B, n_orbitals) logits, occupied orbitals at -inf; with no context,
+    the learnable prior broadcast to ``batch_size`` rows.
+
+    ``dense[i]`` is flax's ``Dense_i``: ``Dense(hidden[0])``,
+    ``Dense(context_dim)``, one ``Dense(d)`` a hidden width, then
+    ``Dense(n_orbitals)``; SiLU after each but the second and the last."""
+
+    def __init__(self, n_orbitals: int,
+                 hidden_dims: Sequence[int] = (256, 256),
+                 context_dim: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_orbitals = n_orbitals
+        self.hidden_dims = tuple(hidden_dims)
+        self.context_dim = context_dim
+        self.dense = mlp_layers((n_orbitals, self.hidden_dims[0], context_dim)
+                                + self.hidden_dims + (n_orbitals,))
+        self.prior_logits = nn.Parameter(torch.zeros(n_orbitals))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        for layer in self.dense:
+            lecun_normal_(layer, generator)
+        with torch.no_grad():
+            self.prior_logits.zero_()
+
+    def forward(self, context: Optional[torch.Tensor] = None,
+                batch_size: int = 1) -> torch.Tensor:
+        if context is None:
+            return self.prior_logits[None, :].expand(batch_size, -1)
+        silu = nn.functional.silu
+        h = self.dense[1](silu(self.dense[0](context)))
+        for layer in self.dense[2:-1]:
+            h = silu(layer(h))
+        logits = self.dense[-1](h)
+        return torch.where(context > 0.5,
+                           torch.full_like(logits, -torch.inf), logits)
+
+
+class GumbelTopK:
+    """:func:`gumbel_topk` at a fixed temperature."""
+
+    def __init__(self, temperature: float = 1.0):
+        self.temperature = temperature
+
+    def __call__(self, logits: torch.Tensor, k: int, hard: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return gumbel_topk(logits, k, float(np.float32(self.temperature)),
+                           generator, uniforms, hard)
 
 
 def verify_particle_conservation(configs, n_alpha: int, n_beta: int,

@@ -90,12 +90,16 @@ class OptaxAdamW:
     * p -= lr(t) * u with lr(t) = lr * (1 + cos(pi * min(t, T) / T)) / 2
       at the update count t before this update.
 
+    ``decay_steps=None`` keeps lr constant; with ``weight_decay=0`` that is
+    ``chain(clip_by_global_norm(max_norm), adam(lr))``, and with
+    ``max_norm=inf`` too, plain ``adam(lr)``.
+
     Device-side throughout: the clip's condition is a tensor, never read
     on the host.
     """
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
-                 decay_steps: int, weight_decay: float = 0.01,
+                 decay_steps: Optional[int], weight_decay: float = 0.01,
                  max_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         self.params = list(params)
@@ -106,7 +110,26 @@ class OptaxAdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
+    def state_dict(self) -> Dict:
+        """The Adam moments (one tensor a parameter, in order) and the
+        update count."""
+        return {"mu": [m.detach().clone() for m in self.mu],
+                "nu": [v.detach().clone() for v in self.nu],
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
+            if len(state[key]) != len(dst):
+                raise ValueError(f"{key} holds {len(state[key])} tensors, "
+                                 f"the optimizer {len(dst)} parameters")
+            for d, s_ in zip(dst, state[key]):
+                d.copy_(torch.as_tensor(s_))
+        self.count = int(state["count"])
+
     def learning_rate(self, count: int) -> float:
+        if self.decay_steps is None:
+            return self.lr
         t = min(count, self.decay_steps)
         return self.lr * 0.5 * (1.0 + math.cos(math.pi * t / self.decay_steps))
 

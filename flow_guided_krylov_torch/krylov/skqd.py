@@ -117,8 +117,15 @@ class SKQDConfig:
     time_step: float = 0.1
     num_trotter_steps: int = 8          # Trotter substeps per evolve
     shots_per_krylov: int = 100_000
+    # declared by the JAX package and read nowhere there: the Krylov bases
+    # are always cumulative (build_cumulative_basis); carried for config
+    # parity
+    use_cumulative_basis: bool = True
     num_eigenvalues: int = 2
     regularization: float = 1e-8
+    # False evolves on the host (the 'scipy' propagator), whatever
+    # ``evolution`` says; Trotter mode has no host propagator
+    use_device_evolution: bool = True
     evolution: str = "auto"   # 'auto' | 'dense' | 'ell' | 'scipy' | 'trotter'
     lanczos_dim: int = 30
     # spin systems beyond this many sites evolve a full 2^n statevector
@@ -637,14 +644,15 @@ class SampleBasedKrylovDiagonalization:
 
         ``auto`` picks a device propagator (dense, then ELL) and raises
         :class:`EvolutionBudgetError` when neither fits the device's
-        memory; the host propagator runs only when asked for by name.
+        memory; the host propagator runs only when asked for by name or
+        with ``use_device_evolution=False``.
         Trotter mode has no subspace vector: it evolves the device
         statevector through :meth:`_evolve_trotter`."""
         if self.use_trotter:
             raise RuntimeError("Trotter mode evolves the statevector "
                                "through _evolve_trotter")
         mode = self.config.evolution
-        if self.dim <= 1:
+        if not self.config.use_device_evolution or self.dim <= 1:
             mode = "scipy"
         if mode == "auto":
             if self.dim <= self._dense_evolution_cap():

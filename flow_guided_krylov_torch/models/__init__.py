@@ -1,6 +1,11 @@
 """Wavefunction models (neural quantum states)."""
 
-from .base import normalized_probability, probability, psi
-from .dense import DenseNQS
+from .base import (NeuralQuantumState, normalized_probability, probability,
+                   psi)
+from .complex_nqs import ComplexNQS, RBMQuantumState
+from .dense import DenseNQS, SignedDenseNQS
 
-__all__ = ["psi", "probability", "normalized_probability", "DenseNQS"]
+__all__ = [
+    "NeuralQuantumState", "psi", "probability", "normalized_probability",
+    "DenseNQS", "SignedDenseNQS", "ComplexNQS", "RBMQuantumState",
+]

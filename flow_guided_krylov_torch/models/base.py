@@ -1,8 +1,9 @@
-"""Derived wavefunction quantities.
+"""Neural quantum state base class and derived wavefunction quantities.
 
-Counterpart of the pure functions of ``flow_guided_krylov_tpu/models/base.py``:
-a model maps (B, num_sites) occupations to (B,) ``log|psi|``; these turn
-log-amplitudes into amplitudes and probabilities.
+Counterpart of ``flow_guided_krylov_tpu/models/base.py``: a model maps
+(B, num_sites) occupations to (B,) ``log|psi|`` and, where it has one, a
+``phase``; these functions turn log-amplitudes into amplitudes and
+probabilities.
 """
 
 from __future__ import annotations
@@ -10,8 +11,18 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
-__all__ = ["psi", "probability", "normalized_probability"]
+__all__ = ["NeuralQuantumState", "psi", "probability",
+           "normalized_probability"]
+
+
+class NeuralQuantumState(nn.Module):
+    """Base class: ``forward(x)`` gives (B,) log|psi|; ``phase(x)``
+    defaults to zeros (a real, positive wavefunction)."""
+
+    def phase(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
 
 
 def psi(log_amp: torch.Tensor, phase: Optional[torch.Tensor] = None

@@ -18,11 +18,15 @@ Stage 4 evolves a molecule in its full or a restricted subspace, a spin
 model in its sector (ELL) or as a 2^n statevector (Trotter).
 Stage-3 early stopping (< 0.05 mHa improvement twice, best basis kept),
 the stage-4 skip rules and the SKQD validation (energies below exact -
-1 mHa are rejected) are the JAX package's.  Branches not ported raise
-``NotImplementedError`` naming their ROADMAP entry: the subspace-energy
-objective (``use_local_energy=False``), checkpointing and resume, more
-than one device, and two branches that fail in the JAX package: the
-discrete flow on a molecule (``use_particle_conserving_flow=False``) and
+1 mHa are rejected) are the JAX package's.  ``use_local_energy=False``
+trains stage 1 on the subspace energy (``flows/training.py``);
+``checkpoint_dir`` saves the stage-1 trainer and the stage-2 and stage-3
+results at their boundaries, and ``run(resume=True)`` restores stages 2
+and 3 from them.  Branches not ported raise ``NotImplementedError``
+naming their ROADMAP entry: more than one device, and three branches
+that fail in the JAX package: the subspace-energy objective
+(``use_local_energy=False``) together with checkpointing, the discrete
+flow on a molecule (``use_particle_conserving_flow=False``) and
 multiword configurations (more than 32 orbitals or 31 spins).
 """
 
@@ -43,6 +47,7 @@ from .flows.particle_conserving import (ParticleConservingFlow,
 from .flows.physics_guided_training import (PhysicsGuidedConfig,
                                             PhysicsGuidedFlowTrainer)
 from .flows.spin_training import SpinFlowTrainer
+from .flows.training import FlowNQSTrainer, TrainingConfig
 from .hamiltonians.molecular import MOLECULE_FACTORIES
 from .krylov.residual_expansion import (ResidualExpansionConfig,
                                         SelectedCIExpander)
@@ -52,6 +57,7 @@ from .models.dense import DenseNQS
 from .ops.bits import unpack_np
 from .postprocessing.diversity_selection import (DiversityConfig,
                                                  DiversitySelector)
+from .utils.checkpoint import CheckpointManager
 from .utils.memory import MemoryBudget
 from .utils.profiling import StageTimer
 
@@ -127,7 +133,7 @@ class PipelineConfig:
     use_davidson: bool = True
     davidson_threshold: int = 500
 
-    # Checkpointing (not ported yet: a set value raises)
+    # Checkpointing: stage-boundary saves, ``run(resume=True)``
     checkpoint_dir: Optional[str] = None
 
     # Multi-device (not ported yet: more than one raises)
@@ -230,15 +236,14 @@ class FlowGuidedKrylovPipeline:
                 "_spin_reference_state_for passes (3, 1) spin rows to "
                 "MolecularHamiltonian.diagonal_np, a ValueError on H2); "
                 "a fault of the reference, ROADMAP.md, Queue 3")
-        if not c.use_local_energy:
+        if not c.use_local_energy and c.checkpoint_dir:
             raise NotImplementedError(
-                "use_local_energy=False needs the subspace-energy trainer "
-                f"FlowNQSTrainer, not ported yet ({_ROADMAP} item 4, "
-                "the rest: flows/training.py)")
-        if c.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir needs utils/checkpoint.py, not ported yet "
-                f"({_ROADMAP} item 4, the rest: checkpointing)")
+                "use_local_energy=False with checkpoint_dir is not ported: "
+                "the JAX package's own run fails there (its "
+                "CheckpointManager.save_trainer reads _acc_keys, which "
+                "FlowNQSTrainer lacks: AttributeError: 'FlowNQSTrainer' "
+                "object has no attribute '_acc_keys'); a fault of the "
+                "reference, ROADMAP.md, Queue 3")
         if c.n_devices is not None and c.n_devices > 1:
             raise NotImplementedError(
                 "n_devices > 1 needs the mesh code, not ported yet "
@@ -277,6 +282,8 @@ class FlowGuidedKrylovPipeline:
         self.trainer = None
         self.nf_basis: Optional[np.ndarray] = None
         self.timer = StageTimer()
+        self.checkpoints = (CheckpointManager(c.checkpoint_dir)
+                            if c.checkpoint_dir else None)
 
     # ------------------------------------------------------------------
     # Stage 1
@@ -288,6 +295,10 @@ class FlowGuidedKrylovPipeline:
             print("\n[Stage 1] NF-NQS co-training")
         if not self.is_molecular:
             return self._train_flow_nqs_spin()
+        if not c.use_local_energy:
+            # the subspace-energy objective: the exact Rayleigh quotient
+            # over the accumulated basis instead of sampled local energies
+            return self._train_flow_nqs_subspace()
         mem = MemoryBudget.for_device(self.device)
         tcfg = PhysicsGuidedConfig(
             num_epochs=c.max_epochs, min_epochs=c.min_epochs,
@@ -353,6 +364,29 @@ class FlowGuidedKrylovPipeline:
             "n_epochs": len(history["energies"]),
             "wall_time": time.perf_counter() - t0,
             "mode": "spin",
+        }
+        return self.results["stage1"]
+
+    def _train_flow_nqs_subspace(self) -> Dict:
+        c = self.config
+        tcfg = TrainingConfig(
+            num_epochs=c.max_epochs, min_epochs=c.min_epochs,
+            samples_per_batch=c.samples_per_batch,
+            nqs_lr=c.nqs_lr, flow_lr=c.nf_lr,
+            max_basis_size=c.max_accumulated_basis,
+            seed=c.seed, verbose=c.verbose)
+        trainer = FlowNQSTrainer(self.h, self.flow, self.nqs, tcfg)
+        t0 = time.perf_counter()
+        history = trainer.train()
+        # stage 2 reads the trainer's accumulated basis and its NQS
+        trainer.accumulated_basis = trainer.cache.basis
+        self.trainer = trainer
+        self.results["stage1"] = {
+            "history": history,
+            "final_energy": history["energies"][-1],
+            "n_epochs": len(history["energies"]),
+            "wall_time": time.perf_counter() - t0,
+            "mode": "subspace_energy",
         }
         return self.results["stage1"]
 
@@ -638,17 +672,45 @@ class FlowGuidedKrylovPipeline:
     # ------------------------------------------------------------------
 
     def run(self, resume: bool = False) -> Dict:
-        if resume:
-            raise NotImplementedError(
-                "resume needs utils/checkpoint.py, not ported yet "
-                f"({_ROADMAP} item 4, the rest: checkpointing)")
+        """The four stages.  With ``resume=True`` and a ``checkpoint_dir``,
+        stages 2 and 3 are restored from their checkpoints where they
+        exist (stage 1 with stage 2: its record says ``resumed``) instead
+        of run; stage 4 always runs."""
         t0 = time.perf_counter()
-        with self.timer.span("stage1_train"):
-            self.train_flow_nqs()
-        with self.timer.span("stage2_select"):
-            self.extract_and_select_basis()
-        with self.timer.span("stage3_residual"):
-            self.run_residual_expansion()
+        ck = self.checkpoints
+        if resume and ck is not None and ck.has_stage("stage2"):
+            st = ck.load_stage("stage2")
+            self.nf_basis = st["nf_basis"].numpy().astype(np.uint32)
+            e_nf = float(self.h.exact_ground_state(self.nf_basis, k=1)[0][0])
+            self.results["stage1"] = {"history": {}, "final_energy": e_nf,
+                                      "n_epochs": 0, "wall_time": 0.0,
+                                      "resumed": True}
+            self.results["stage2"] = {"nf_basis_size": len(self.nf_basis),
+                                      "nf_energy": e_nf, "resumed": True,
+                                      "selection_stats": {}, "audit": {}}
+        else:
+            with self.timer.span("stage1_train"):
+                self.train_flow_nqs()
+            if ck is not None:
+                ck.save_trainer("stage1", self.trainer)
+            with self.timer.span("stage2_select"):
+                self.extract_and_select_basis()
+            if ck is not None:
+                ck.save_stage("stage2", {"nf_basis": self.nf_basis})
+        if resume and ck is not None and ck.has_stage("stage3"):
+            st = ck.load_stage("stage3")
+            basis = st["basis"].numpy().astype(np.uint32)
+            self.results["stage3"] = {
+                "energy": float(st["energy"]), "basis": basis,
+                "basis_size": int(len(basis)),
+                "energies": [], "n_iterations": 0, "resumed": True}
+        else:
+            with self.timer.span("stage3_residual"):
+                self.run_residual_expansion()
+            if ck is not None:
+                ck.save_stage("stage3", {
+                    "basis": self.results["stage3"]["basis"],
+                    "energy": self.results["stage3"]["energy"]})
         with self.timer.span("stage4_skqd"):
             self.run_skqd()
 

@@ -709,3 +709,75 @@ def test_exact_oracle_equal_on_both_devices(card, model, n, h):
     e = {dev: lat.exact_oracle(lat.make_hamiltonian(model, n, h, dev)[0])
          for dev in ("cuda", "cpu")}
     assert abs(e["cuda"] - e["cpu"]) < 1e-10
+
+
+def _models_pair():
+    """Each NQS model of the port and the scorer, at small widths, and a
+    way to run both copies: (name, cpu model, forward)."""
+    from flow_guided_krylov_torch.flows import OrbitalScoringNetwork
+    from flow_guided_krylov_torch.models import (ComplexNQS, DenseNQS,
+                                                 RBMQuantumState,
+                                                 SignedDenseNQS)
+    g = torch.Generator().manual_seed(5)
+    return [
+        ("dense_gelu", DenseNQS(20, (64, 64), activation="gelu",
+                                generator=g), 2e-6),
+        ("dense_bf16", DenseNQS(20, (64, 64), generator=g,
+                                compute_dtype=torch.bfloat16), 2e-2),
+        ("dense_complex", DenseNQS(20, (64, 64), complex_output=True,
+                                   generator=g), 2e-6),
+        ("signed", SignedDenseNQS(20, (64, 64), generator=g), 2e-6),
+        ("complex", ComplexNQS(20, (64, 64), generator=g), 2e-6),
+        ("rbm", RBMQuantumState(20, 32, generator=g), 2e-6),
+        ("rbm_complex", RBMQuantumState(20, 32, complex_weights=True,
+                                        generator=g), 2e-6),
+        ("scorer", OrbitalScoringNetwork(20, (64, 64), 16, generator=g),
+         2e-6)]
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_new_models_on_card_match_cpu(card, index):
+    """Log-amplitudes and phases (the scorer: its logits, -inf on the
+    occupied orbitals) on the card against the CPU, f32 (bf16 trunk:
+    2e-2) of the largest magnitude."""
+    import copy
+    name, cpu, tol = _models_pair()[index]
+    dev = copy.deepcopy(cpu).to(card)
+    x = (torch.rand(4000, 20, generator=torch.Generator().manual_seed(6))
+         < 0.4).float()
+    with torch.no_grad():
+        outs = [(cpu(x), dev(x.to(card)).cpu())]
+        if hasattr(cpu, "phase"):
+            outs.append((cpu.phase(x), dev.phase(x.to(card)).cpu()))
+    for a, b in outs:
+        finite = torch.isfinite(a)
+        assert torch.equal(finite, torch.isfinite(b)), name
+        scale = max(1.0, float(a[finite].abs().max()))
+        assert float((a[finite] - b[finite]).abs().max()) <= tol * scale, name
+
+
+def test_subspace_step_on_card_matches_cpu(lih_cuda):
+    """One FlowNQSTrainer step from one basis and one state on the card
+    and on the CPU: the energy, the flow loss and the updated NQS to
+    f32; the device H to f32."""
+    from flow_guided_krylov_torch.flows import (FlowNQSTrainer,
+                                                ParticleConservingFlow,
+                                                TrainingConfig)
+    from flow_guided_krylov_torch.models import DenseNQS
+
+    def make(h):
+        return FlowNQSTrainer(h, ParticleConservingFlow(6, 2, 2, (64, 64)),
+                              DenseNQS(12, (64, 64)),
+                              TrainingConfig(samples_per_batch=256, seed=3))
+    cpu, dev = make(create_lih_hamiltonian("cpu")), make(lih_cuda)
+    basis = cpu.h.enumerate_basis()[::2]
+    cpu.cache.extend(basis)
+    dev.cache.extend(basis)
+    assert (cpu.cache.H_device - dev.cache.H_device.cpu()).abs().max() \
+        <= 1e-6 * 8.0
+    e_c, f_c = cpu._step()
+    e_d, f_d = dev._step()
+    assert abs(float(e_c) - float(e_d)) <= 2e-6 * abs(float(e_c))
+    assert abs(float(f_c) - float(f_d)) <= 2e-6 * max(1.0, abs(float(f_c)))
+    for a, b in zip(cpu.nqs.parameters(), dev.nqs.parameters()):
+        assert (a.detach() - b.detach().cpu()).abs().max() <= 0.05 * 1e-3

@@ -145,26 +145,41 @@ def test_run_molecular_benchmark_on_cpu():
 @pytest.mark.parametrize("field,value", [
     ("use_local_energy", False), ("checkpoint_dir", "ckpt"),
     ("n_devices", 2), ("use_particle_conserving_flow", False)])
-def test_unported_options_raise(field, value):
+def test_unported_options_raise(field, value, tmp_path):
+    """Each option that still raises; ``use_local_energy=False`` and
+    ``checkpoint_dir`` run alone and raise together (the JAX package's
+    own run fails on the pair: ``tests/test_torch_checkpoint.py``)."""
     h = pmol.create_h2_hamiltonian("cpu")
-    cfg = ppipe.PipelineConfig(verbose=False, **{field: value})
+    options = {field: value}
+    if field in ("use_local_energy", "checkpoint_dir"):
+        options = {"use_local_energy": False,
+                   "checkpoint_dir": str(tmp_path / value if field ==
+                                         "checkpoint_dir" else tmp_path)}
+    cfg = ppipe.PipelineConfig(verbose=False, **options)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ppipe.FlowGuidedKrylovPipeline(h, cfg)
 
 
-def test_unported_branches_raise():
+def test_unported_branches_raise(tmp_path):
     from flow_guided_krylov_torch.flows import DiscreteFlowSampler
     from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_torch.utils.checkpoint import \
+        CheckpointFormatError
     # spin Hamiltonians are ported: TFIM builds with the discrete flow
     tfim = ppipe.FlowGuidedKrylovPipeline(
         TransverseFieldIsing(6, h=0.5, device="cpu"),
         ppipe.PipelineConfig(verbose=False))
     assert isinstance(tfim.flow, DiscreteFlowSampler)
     assert tfim.n_valid == 64 and not tfim.is_molecular
+    # resume is ported, but a stage the JAX package wrote is refused
     h = pmol.create_h2_hamiltonian("cpu")
-    with pytest.raises(NotImplementedError, match="resume"):
+    (tmp_path / "stage2").mkdir()
+    (tmp_path / "stage2" / "FORMAT").write_text("orbax")
+    with pytest.raises(CheckpointFormatError, match="JAX package"):
         ppipe.FlowGuidedKrylovPipeline(
-            h, ppipe.PipelineConfig(verbose=False)).run(resume=True)
+            h, ppipe.PipelineConfig(verbose=False,
+                                    checkpoint_dir=str(tmp_path))
+        ).run(resume=True)
     # a 14-orbital (7a, 7b) space, 11.8M determinants: stage 4 no longer
     # raises but evolves in the restricted subspace (here capped at 300
     # states; HF is both the start and the basis and counts once: 299)
