@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (flow_guided_krylov_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, one card
+    python3 chip_smoke.py --only mesh   # the build and phase_mesh alone
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (one ``nvcc`` per source, started together), holds each against
@@ -105,6 +106,23 @@ statevector):
    ``run_large_spin_sci`` held to the record and printed beside its DMRG
    energy, the device scorer against the host's and twice bit for bit,
    the device dE2 against the host's;
+12b. restricted SKQD over 4-word determinants (``phase_skqd_w4``): the
+   large-system CLI's ``run("ozone_ccpvdz_full", mode="sci+skqd")`` with
+   its Selected-CI served step 12's round-0 basis (3,001 determinants)
+   and K = 3 (the CLI's 6 cut): restricted SKQD at the card's cap
+   (dense at 20,000 states) and the CCSD(T) oracle; then the same states
+   cut to the ELL budget (~12,750 rows of 104,760 connections) with
+   ``evolution="ell"`` forced: the device build on (alpha, beta) key
+   pairs, the kernel at this width against plain, bound and cuSPARSE,
+   the energy below E_var, one ELL evolve against the dense one;
+12c. the multi-device layer (``phase_mesh``) on a logical mesh of four
+   ``cuda:0`` entries (and ``cuda:0..3`` on a host of four cards): the
+   N2/cc-pVDZ restricted evolve at the card's cap as four row blocks,
+   bit-equal to the unsharded one, the row-block kernel against plain,
+   bound and cuSPARSE; TFIM-24's Trotter SKQD over four statevector
+   blocks against the single-device state; the N2 pipeline (100 epochs)
+   with the mesh on ``pipe.mesh`` against the one without; and
+   ``graft_entry.dryrun_multichip(4)``; walls and peer-copy bytes;
 13. the entry points (``phase_entry_points``): ``bench``'s one JSON line,
    ``benchmark --molecule all --pt2-only`` (seven molecules, each beside
    the JAX record's error), the moderate CLI on CO, ``skqd_validation``'s
@@ -1812,6 +1830,7 @@ def phase_restricted(device="cuda", rehearsal=False):
 
     # ---- the main path again: the pipeline's stage 4 at the card's cap --
     full_launches = 0
+    mesh_input = None
     if not rehearsal:
         pipe = FlowGuidedKrylovPipeline(h, PipelineConfig(seed=0,
                                                           verbose=False))
@@ -1861,12 +1880,15 @@ def phase_restricted(device="cuda", rehearsal=False):
             psi = np.zeros(wide.dim, complex)
             psi[wide._index_of(hf)[0]] = 1.0
             res["card_cap"]["warm_evolve_ell_ms"] = warm_evolve_ms(wide, psi)
+            # the card's cap states, for phase_mesh's row-sharded evolve
+            mesh_input = {"h": h, "basis": basis, "hf": hf,
+                          "states": states}
             del wide, states
             torch.cuda.empty_cache()
     print("restricted: " + json.dumps(res))
     return {"launches": launches + full_launches,
             "launches_cli": cli_launches, "rows": rows,
-            "ccsd": ccsd}
+            "ccsd": ccsd, "mesh_input": mesh_input}
 
 
 def propagator_eigh_check(skqd, psi):
@@ -2519,6 +2541,8 @@ def phase_multiword(device="cuda", rehearsal=False):
     if not corr["de2"] < 0.0 or corr["n_external"] <= 0:
         raise RuntimeError(f"O3: dE2 at round 0: {o3['de2_round0']}")
     res["o3"] = o3
+    # the round-0 basis and its energy, for phase_skqd_w4
+    res["o3_stage3"] = {"basis": basis0, "energy": e0}
     del h, exp, out
     if cuda:
         torch.cuda.empty_cache()
@@ -2669,6 +2693,646 @@ def o3_selection_witness(device="cuda", per_round=3000):
     return out
 
 
+def ell_block_row(name, block, psi, n_total, reps=20):
+    """The row-block form of the ELL kernel on one block of a sharded
+    table (rows [row0, row0 + r) as (C, r), psi (B, N) whole): against its
+    plain version (0.0), timed beside its bound and cuSPARSE's product of
+    the block's CSR rows with psi."""
+    import torch
+    import warnings
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    row0, diag, el_t, tgt_t = block
+    c, r = el_t.shape
+    b, n = psi.shape
+    plain = ell.ell_spmv_reference(diag, el_t, tgt_t, psi, row0, n_total)
+    plain_ms = _median_ms(lambda: ell.ell_spmv_reference(
+        diag, el_t, tgt_t, psi, row0, n_total), 1)
+    got = ell.ell_spmv_cuda(diag, el_t, tgt_t, psi, row0=row0,
+                            n_total=n_total)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    if not err <= ELL_TOL:
+        raise RuntimeError(f"{name}: row-block kernel vs plain {err}")
+    cols = torch.cat([torch.arange(row0, row0 + r, dtype=torch.int32,
+                                   device=psi.device)[:, None],
+                      tgt_t.T], 1).reshape(-1)
+    vals = torch.cat([diag[:, None], el_t.T], 1).reshape(-1)
+    crow = torch.arange(0, r + 1, dtype=torch.int32,
+                        device=psi.device) * (c + 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(crow, cols, vals, (r, n))
+    psi_t = psi.T.contiguous()
+    lib = (csr @ psi_t).T
+    lib_err = float((lib - got).abs().max())
+    if not lib_err <= CSR_RTOL * float(plain.abs().max()):
+        raise RuntimeError(f"{name}: cuSPARSE vs row-block kernel {lib_err}")
+    call = (lambda: ell.ell_spmv_cuda(diag, el_t, tgt_t, psi, row0=row0,
+                                      n_total=n_total))
+    ms = _median_ms(call, reps)
+    device_ms = _median_ms(call, 5, 8)
+    library_ms = _median_ms(lambda: csr @ psi_t, reps)
+    bound_ms, bound_by = bound(8.0 * c * r + 4.0 * r + 4.0 * b * (n + r),
+                               2.0 * b * c * r)
+    row = {"table": name, "N": n_total, "rows": r, "row0": row0, "C": c,
+           "B": b, "segments": ell.ell_segments(n_total, c),
+           "psi_on_chip": ell.psi_fits_on_chip(n, b),
+           "max_abs_err": err, "csr_max_abs_diff": lib_err,
+           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_call": "csr_block @ psi.T",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms,
+           "device_bound_share": bound_ms / device_ms}
+    del csr, cols, vals
+    print("ell_spmv rows: " + json.dumps(row))
+    return row
+
+
+def w4_rehearsal_stage3(device="cpu"):
+    """A 6-orbital (2a, 2b) system of random integrals embedded in 34
+    orbitals (4-word rows, C = 5,216) and one Selected-CI round of 30 from
+    HF: the stand-in for O3 in ``phase_skqd_w4(rehearsal=True)``."""
+    import numpy as np
+    from flow_guided_krylov_torch.chem.scf import MolecularIntegrals
+    from flow_guided_krylov_torch.hamiltonians import MolecularHamiltonian
+    from flow_guided_krylov_torch.krylov import SelectedCIExpander
+    rng = np.random.default_rng(7)
+    n, big = 6, 34
+    h1 = rng.normal(size=(n, n))
+    h2 = rng.normal(size=(n,) * 4) * 0.1
+    h2 = h2 + h2.transpose(1, 0, 2, 3)
+    h2 = h2 + h2.transpose(0, 1, 3, 2)
+    h2 = h2 + h2.transpose(2, 3, 0, 1)
+    H1 = np.zeros((big, big))
+    H1[:n, :n] = 0.5 * (h1 + h1.T)
+    H2 = np.zeros((big,) * 4)
+    H2[:n, :n, :n, :n] = h2 / 8
+
+    def factory(dev):
+        return MolecularHamiltonian(MolecularIntegrals(
+            h1e=H1, h2e=H2, nuclear_repulsion=0.5, n_electrons=4,
+            n_orbitals=big, n_alpha=2, n_beta=2), dev)
+
+    h = factory(device)
+    out = SelectedCIExpander(h).expand_basis(h.get_hf_state()[None, :],
+                                             n_add=30)
+    return {"factory": factory, "basis": out["basis"],
+            "energy": out["energy"]}
+
+
+def phase_skqd_w4(stage3, device="cuda", rehearsal=False):
+    """Restricted SKQD over 4-word determinants: O3/cc-pVDZ (18e, 39o; C =
+    104,760) through the large-system CLI's ``run("ozone_ccpvdz_full",
+    mode="sci+skqd")``, its Selected-CI served ``phase_multiword``'s
+    round-0 basis (3,001 determinants; ``stage3``), K cut to 3: restricted
+    SKQD at the card's cap (``auto``: dense at 20,000 states) and the
+    CCSD(T) oracle.  Then the same restricted states cut to the ELL budget
+    with ``evolution="ell"`` forced: the device ELL build on (alpha, beta)
+    key pairs (seconds, table bytes), the kernel at this width against its
+    plain version, its bound and cuSPARSE, its launches in the run, the
+    energy variational below E_var of the basis, and one ELL evolve
+    against the dense evolve on the same states (the dense H the host
+    built for the CLI's run).  ``rehearsal`` (no card) runs a 6-orbital
+    system embedded in 34 orbitals with a 60-row ELL cap."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.examples import \
+        large_system_benchmark as lsb
+    from flow_guided_krylov_torch.krylov import FlowGuidedSKQD, SKQDConfig
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.utils.memory import MemoryBudget
+    cuda = device == "cuda"
+    krylov_dim = 3
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    basis, e_var = stage3["basis"], float(stage3["energy"])
+    served = {}
+
+    def run_sci(h, exact, **kw):
+        served["h"] = h
+        return {"final_energy": e_var, "basis_size": int(len(basis)),
+                "_basis": basis}
+
+    system = "ozone_ccpvdz_full"
+    patches = [mock.patch.object(lsb, "run_sci", run_sci)]
+    if rehearsal:
+        # the embedded system stands in for O3, at a 150-state cap, and
+        # its CCSD(T) (empty virtual orbitals) is not taken
+        system = "embedded_6_in_34"
+        patches += [
+            mock.patch.dict(lsb.SYSTEMS, {system: stage3["factory"]}),
+            mock.patch.object(lsb, "supported_evolution_dim",
+                              lambda h, mesh=None: 150),
+            mock.patch.object(lsb, "ccsd_reference_dict",
+                              lambda ints, e: {})]
+    # ---- the main path: the CLI's sci+skqd run --------------------------
+    ell.ell_spmv_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        made = stack.enter_context(spy_runs(lsb, "FlowGuidedSKQD",
+                                            method="run_with_nf"))
+        cli = lsb.run(system, mode="sci+skqd", krylov_dim=krylov_dim,
+                      device=device)
+    sync()
+    cli_wall = time.perf_counter() - t0
+    cli_launches = ell.ell_spmv_cuda.launches
+    # ---------------------------------------------------------------------
+    h = served["h"]
+    skqd, out = made[0]
+    res = {"system": system, "pack_words": h.pack_words,
+           "C": h.n_connections, "basis": int(len(basis)), "e_var": e_var,
+           "cli_wall_s": cli_wall, "cli_ell_launches": cli_launches,
+           "krylov_dim": krylov_dim,
+           "cli": {k: v for k, v in cli.items()
+                   if k.startswith(("skqd_", "ccsd", "final_energy",
+                                    "hf_energy"))}}
+    print("skqd_w4 CLI: " + json.dumps(res))
+    if h.pack_words != 4:
+        raise RuntimeError("skqd_w4: not 4-word determinants")
+    if not cli["skqd_energy"] <= e_var + 1e-9:
+        raise RuntimeError(f"skqd_w4: SKQD {cli['skqd_energy']} above "
+                           f"E_var {e_var}")
+
+    # ---- forced ELL on the restricted states at the ELL budget ----------
+    states = skqd.subspace
+    budget = (100 if rehearsal else
+              MemoryBudget.for_device(h.device).connection_table_entries()
+              // (h.n_connections + 1))
+    k = int(min(len(states), budget))
+    sub = states[:k]
+    hf = h.get_hf_state()
+    cfg = SKQDConfig(evolution="ell", max_krylov_dim=krylov_dim,
+                     shots_per_krylov=100_000, time_step=0.1)
+    forced = FlowGuidedSKQD(h, basis, cfg, initial_state=hf,
+                            subspace_states=sub)
+    t0 = time.perf_counter()
+    diag, el_t, tgt_t = forced._ell_structure()
+    sync()
+    build_s = time.perf_counter() - t0
+    c = el_t.shape[0]
+    ell.ell_spmv_cuda.launches = 0
+    t0 = time.perf_counter()
+    run = forced.run_with_nf(final_only=True)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = ell.ell_spmv_cuda.launches
+    e_ell = float(run["best_stable_energy"])
+    w4 = {"rows": k, "C": c, "ell_budget_rows": int(budget),
+          "table_build_s": build_s, "table_bytes": 8 * c * k + 4 * k,
+          "run_s": run_s, "ell_launches": launches, "energy": e_ell,
+          "e_var": e_var, "below_e_var_mha": 1e3 * (e_var - e_ell),
+          "combined_size": run["combined_sizes"][-1]}
+    if not e_ell <= e_var + 1e-9 or (
+            cuda and launches != (krylov_dim - 1) * min(30, k)):
+        raise RuntimeError(f"skqd_w4 forced ELL: {w4}")
+    # one evolve: ELL against dense on the same states; the dense H is the
+    # host CSR the CLI's run built, cut to the first k states
+    psi = np.zeros(k, complex)
+    psi[forced._index_of(hf)[0]] = 1.0
+    dense = FlowGuidedSKQD(h, basis, SKQDConfig(evolution="dense"),
+                           initial_state=hf, subspace_states=sub)
+    dense._h_sparse = skqd.subspace_hamiltonian[:k][:, :k]
+    want = dense.evolve(psi)
+    got = forced.evolve(psi)
+    w4["dense_vs_ell_gap"] = float(np.linalg.norm(got - want)
+                                   / np.linalg.norm(want))
+    w4["warm_evolve_ell_ms"] = warm_evolve_ms(forced, psi)
+    del dense
+    print("skqd_w4 forced ELL: " + json.dumps(w4))
+    if not w4["dense_vs_ell_gap"] <= PROPAGATOR_EIGH_TOL:
+        raise RuntimeError(f"skqd_w4: dense vs ELL {w4['dense_vs_ell_gap']}")
+    rows = []
+    if cuda:
+        rows += ell_w4_rows("o3_ccpvdz_w4_ell_budget", diag, el_t, tgt_t,
+                            build_s)
+    res["forced_ell"] = w4
+    del forced, diag, el_t, tgt_t
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches_cli": cli_launches, "launches": launches,
+            "rows": rows, "res": res}
+
+
+def csr_of_ell_hits(diag, el_t, tgt_t, chunk=1024):
+    """diag + the ELL entries with a nonzero element, as one CSR matrix
+    (int32 indices), built a chunk of rows at a time: the same product as
+    the tables, for cuSPARSE.  A restricted table's connections that leave
+    the subspace hold element 0 and target 0, so the full table repeats
+    column 0 in each row, which a CSR matrix cannot hold.  Returns (csr,
+    number of nonzero entries off the diagonal)."""
+    import torch
+    import warnings
+    c, n = el_t.shape
+    dev = diag.device
+    counts, cols, vals = [], [], []
+    for a in range(0, n, chunk):
+        b = min(n, a + chunk)
+        e = el_t[:, a:b].T
+        hit = e != 0
+        counts.append(hit.sum(1) + 1)
+        own = torch.arange(a, b, dtype=torch.int32, device=dev)[:, None]
+        cols.append(torch.cat([own, torch.where(hit, tgt_t[:, a:b].T,
+                                                -1)], 1).reshape(-1))
+        vals.append(torch.cat([diag[a:b, None], e], 1).reshape(-1))
+        keep = cols[-1] >= 0
+        cols[-1], vals[-1] = cols[-1][keep], vals[-1][keep]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.cat(counts), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(crow.to(torch.int32), torch.cat(cols),
+                                      torch.cat(vals), (n, n))
+    return csr, int(crow[-1]) - n
+
+
+def ell_w4_rows(name, diag, el_t, tgt_t, build_s, reps=10):
+    """The ELL kernel at the widest row it runs (C = 104,760): B = 1 and
+    2 against the plain version (one call each: its loop over C takes
+    seconds), its bounds and cuSPARSE on the nonzero entries.  Two bounds:
+    the tables as stored (each entry read once: what the kernel reads)
+    and their nonzero entries (what this run's data needs: the bound
+    reported)."""
+    import torch
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    c, n = el_t.shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    csr, nnz = csr_of_ell_hits(diag, el_t, tgt_t)
+    out = []
+    for b in (1, 2):
+        psi = torch.randn((b, n), generator=gen, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = ell.ell_spmv_reference(diag, el_t, tgt_t, psi)
+        end.record()
+        end.synchronize()
+        got = ell.ell_spmv_cuda(diag, el_t, tgt_t, psi)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        scale = float(plain.abs().max())
+        psi_t = psi.T.contiguous()
+        lib_err = float(((csr @ psi_t).T - got).abs().max())
+        if not err <= ELL_TOL or not lib_err <= CSR_RTOL * scale:
+            raise RuntimeError(f"{name} B={b}: kernel vs plain {err}, "
+                               f"cuSPARSE {lib_err}")
+        call = lambda: ell.ell_spmv_cuda(diag, el_t, tgt_t, psi)  # noqa
+        ms = _median_ms(call, reps)
+        device_ms = _median_ms(call, 5, 4)
+        lib_ms = _median_ms(lambda: csr @ psi_t, reps)
+        io = 4.0 * n * (1 + 2 * b)
+        tables_ms, _ = bound(8.0 * c * n + io, 2.0 * b * c * n)
+        bound_ms, bound_by = bound(8.0 * nnz + io, 2.0 * b * nnz)
+        row = {"table": name, "N": n, "C": c, "B": b,
+               "segments": ell.ell_segments(n, c),
+               "psi_on_chip": ell.psi_fits_on_chip(n, b),
+               "nonzero_entries": nnz,
+               "max_abs_err": err, "max_abs_plain": scale,
+               "csr_max_abs_diff": lib_err, "ms": ms,
+               "device_ms": device_ms,
+               "plain_ms": start.elapsed_time(end),
+               "library_ms": lib_ms,
+               "library_call": "csr(nonzero entries) @ psi.T",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_tables_ms": tables_ms,
+               "bound_share": bound_ms / ms,
+               "device_bound_share": bound_ms / device_ms,
+               "tables_bound_share": tables_ms / device_ms,
+               "table_bytes": 8 * c * n + 4 * n, "table_build_s": build_s}
+        print("ell_spmv: " + json.dumps(row))
+        out.append(row)
+    del csr
+    return out
+
+
+def phase_mesh(mesh_input, n2_fci, device="cuda", rehearsal=False):
+    """The multi-device layer on a logical mesh of four ``cuda:0``
+    entries, and on ``cuda:0..3`` when the host has four cards: the
+    N2/cc-pVDZ restricted SKQD evolve at the card's cap (``mesh_input``:
+    229,868 states x 2,835 from ``phase_restricted``) as four row blocks,
+    bit-equal to the unsharded evolve, with the row-block kernel against
+    its plain version, bound and cuSPARSE; TFIM-24's Trotter SKQD over
+    four statevector blocks against the single-device state (1e-5) and
+    run; the N2/STO-3G pipeline with the mesh set on ``pipe.mesh``
+    (100 epochs) within 1e-4 Ha of the same pipeline without; and
+    ``dryrun_multichip(4)``.  Prints walls sharded against unsharded and
+    the bytes of peer copies.  ``rehearsal`` (no card) runs a 3,000-state
+    N2/STO-3G subspace, TFIM-12 and LiH on a ``cpu`` mesh."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.examples.graft_entry import \
+        dryrun_multichip
+    from flow_guided_krylov_torch.hamiltonians import (
+        MOLECULE_FACTORIES, TransverseFieldIsing)
+    from flow_guided_krylov_torch.krylov import (
+        FlowGuidedSKQD, SampleBasedKrylovDiagonalization, SKQDConfig)
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.parallel import (gather_statevector,
+                                                   make_mesh, peer_bytes,
+                                                   shard_statevector)
+    from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
+                                                   PipelineConfig)
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    meshes = {"logical_4": make_mesh(4, devices=[device] * 4)}
+    if cuda and torch.cuda.device_count() >= 4:
+        meshes["cuda_0_3"] = make_mesh(4)
+    if mesh_input is None:
+        h = MOLECULE_FACTORIES["n2"](device)
+        states = h.enumerate_basis()[:3000]
+        mesh_input = {"h": h, "basis": states[:300], "hf": h.get_hf_state(),
+                      "states": states}
+    h, basis, hf = mesh_input["h"], mesh_input["basis"], mesh_input["hf"]
+    states = mesh_input["states"]
+    res, rows, by_path = {}, [], {}
+
+    # ---- restricted SKQD at the card's cap, four row blocks -------------
+    cfg = SKQDConfig(evolution="ell")
+    one = FlowGuidedSKQD(h, basis, cfg, initial_state=hf,
+                         subspace_states=states)
+    psi = np.zeros(one.dim, complex)
+    psi[one._index_of(hf)[0]] = 1.0
+    want = one.evolve(psi)
+    single_ms = warm_evolve_ms(one, psi)
+    del one
+    if cuda:
+        torch.cuda.empty_cache()
+    for name, mesh in meshes.items():
+        sk = FlowGuidedSKQD(h, basis, cfg, initial_state=hf, mesh=mesh,
+                            subspace_states=states)
+        t0 = time.perf_counter()
+        sk._ell_structure()
+        sync()
+        build_s = time.perf_counter() - t0
+        peer_bytes(reset=True)
+        # ---- the path: one sharded evolve, the row-block count around it
+        ell.ell_spmv_cuda.launches = 0
+        got = sk.evolve(psi)
+        sync()
+        launches = ell.ell_spmv_cuda.launches
+        by_path[f"mesh {name}: restricted n2_ccpvdz evolve, 4 row blocks"] \
+            = launches
+        r = {"mesh": name, "devices": [str(d) for d in mesh.devices],
+             "rows": sk.dim, "C": h.n_connections, "pad": sk._ell.pad,
+             "table_build_s": build_s,
+             "row_block_launches": launches,
+             "bit_equal": bool(np.array_equal(got, want)),
+             "peer_bytes_evolve": peer_bytes(reset=True),
+             "warm_evolve_ms": warm_evolve_ms(sk, psi),
+             "unsharded_warm_evolve_ms": single_ms}
+        print("mesh restricted evolve: " + json.dumps(r))
+        if not r["bit_equal"] or (cuda and launches
+                                  != 4 * min(30, sk.dim)):
+            raise RuntimeError(f"mesh restricted evolve: {r}")
+        if cuda:
+            gen = torch.Generator(device=mesh.first).manual_seed(8)
+            vp = torch.nn.functional.pad(
+                torch.randn((2, sk.dim), generator=gen, device=mesh.first),
+                (0, sk._ell.pad))
+            blk = sk._ell.blocks[0]
+            rows.append(ell_block_row(
+                f"n2_ccpvdz_card_cap_block0_of_4_{name}",
+                blk, vp.to(blk[1].device), sk.dim))
+        res[f"restricted_{name}"] = r
+        del sk
+        if cuda:
+            torch.cuda.empty_cache()
+
+    if "cuda_0_3" in meshes:
+        res["above_one_card"] = mesh_above_one_card(meshes["cuda_0_3"], h,
+                                                    basis, hf, states)
+
+    # ---- TFIM-24 Trotter SKQD over four statevector blocks --------------
+    n = 24 if cuda else 12
+    ham = TransverseFieldIsing(n, V=1.0, h=0.5, periodic=True,
+                               device=device)
+    init = np.array([0], np.uint32)
+    tcfg = SKQDConfig(evolution="trotter", max_krylov_dim=3,
+                      shots_per_krylov=100_000, seed=0)
+    one = SampleBasedKrylovDiagonalization(ham, tcfg, initial_state=init)
+    re = torch.zeros(1 << n, device=device)
+    re[0] = 1.0
+    im = torch.zeros_like(re)
+    r1, i1 = one._evolve_trotter(re, im)
+    t0 = time.perf_counter()
+    e1 = one.run(final_only=True)
+    sync()
+    single_run_s = time.perf_counter() - t0
+    sweep_errs = []
+    for name, mesh in meshes.items():
+        sk = SampleBasedKrylovDiagonalization(ham, tcfg, initial_state=init,
+                                              mesh=mesh)
+        peer_bytes(reset=True)
+        # ---- the path: one sharded evolve, the x_sweep count around it --
+        xs.x_sweep_cuda.launches = 0
+        r2, i2 = gather_statevector(mesh, *sk._evolve_trotter(
+            *shard_statevector(mesh, re, im)))
+        sync()
+        launches = xs.x_sweep_cuda.launches
+        by_path[f"mesh {name}: tfim{n} trotter evolve, 4 blocks"] = launches
+        gap = float(max((r1 - r2).abs().max(), (i1 - i2).abs().max()))
+        sweep_err = mesh_sweep_check(mesh, sk._trotter_ops(), n)
+        sweep_errs.append(sweep_err)
+        t0 = time.perf_counter()
+        e2 = sk.run(final_only=True)
+        sync()
+        t = {"mesh": name, "sites": n, "x_sweep_launches": launches,
+             "max_abs_gap": gap, "block_sweep_vs_plain": sweep_err,
+             "peer_bytes_evolve": peer_bytes(reset=True),
+             "run_s": time.perf_counter() - t0,
+             "unsharded_run_s": single_run_s,
+             "energy": e2["final_energy"],
+             "unsharded_energy": e1["final_energy"],
+             "same_samples": e2["samples"] == e1["samples"]}
+        print("mesh trotter: " + json.dumps(t))
+        if gap > 1e-5 or sweep_err != 0.0 or (cuda and launches <= 0):
+            raise RuntimeError(f"mesh trotter: {t}")
+        res[f"trotter_{name}"] = t
+        del sk
+    del one, re, im, r1, i1
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the N2/STO-3G pipeline with the mesh on pipe.mesh --------------
+    mol = "n2" if cuda else "lih"
+    hp = MOLECULE_FACTORIES[mol](device)
+    fci = n2_fci if cuda else hp.fci_energy()
+    epochs = 100 if cuda else 10
+
+    def pipeline(mesh):
+        pipe = FlowGuidedKrylovPipeline(hp, PipelineConfig(seed=0),
+                                        exact_energy=fci)
+        pipe.config.max_epochs = epochs
+        pipe.mesh = mesh
+        peer_bytes(reset=True)
+        t0 = time.perf_counter()
+        out = pipe.run()
+        sync()
+        return {"final_energy": out["final_energy"],
+                "error_mha": 1e3 * (out["final_energy"] - fci),
+                "wall_s": time.perf_counter() - t0,
+                "stage_walls_s": {k: v["total_s"] for k, v
+                                  in pipe.timer.summary().items()},
+                "peer_bytes": peer_bytes(reset=True)}
+
+    single = pipeline(None)
+    for name, mesh in meshes.items():
+        p = pipeline(mesh)
+        p.update(mesh=name, molecule=mol, epochs=epochs,
+                 unsharded=single,
+                 gap=p["final_energy"] - single["final_energy"])
+        print("mesh pipeline: " + json.dumps(p))
+        if not abs(p["gap"]) < 1e-4:
+            raise RuntimeError(f"mesh pipeline: {p}")
+        res[f"pipeline_{name}"] = p
+
+    # ---- the dry run ----------------------------------------------------
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun_multichip(4, device=device)
+    res["dryrun"]["wall_s"] = time.perf_counter() - t0
+    return {"by_path": by_path, "rows": rows, "res": res,
+            "sweep_err": max(sweep_errs)}
+
+
+def mesh_above_one_card(mesh, h, basis, hf, states):
+    """Restricted SKQD on four cards at twice one card's ELL budget: the
+    card-cap states plus the first other determinants of the full space,
+    up to 2 x ``connection_table_entries() // (C + 1)`` rows, which one
+    card's budget refuses and the four-card mesh admits.  The row blocks
+    are built on their own cards; prints each card's peak allocation over
+    the build (its block, the search keys and one build chunk; it fails
+    at the whole tables' bytes, which a build on the first card followed
+    by a copy-out would exceed there), the row-block launches and
+    warm evolve walls, and holds the sharded evolve bit-equal to the
+    unsharded one, computed on cuda:0 past the budget (its tables fit the
+    80 GB card)."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.krylov import FlowGuidedSKQD, SKQDConfig
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.parallel import peer_bytes
+    from flow_guided_krylov_torch.utils.memory import MemoryBudget
+    c = h.n_connections
+    rows = 2 * (MemoryBudget.for_device(mesh.first)
+                .connection_table_entries() // (c + 1))
+    full = h.enumerate_basis()
+    extra = full[~np.isin(h.keys(full), h.keys(states))]
+    sub = np.concatenate([states, extra[:rows - len(states)]])
+    del full, extra
+    cfg = SKQDConfig(evolution="ell")
+    sk = FlowGuidedSKQD(h, basis, cfg, initial_state=hf, mesh=mesh,
+                        subspace_states=sub)
+    one = FlowGuidedSKQD(h, basis, cfg, initial_state=hf,
+                         subspace_states=sub)
+    if one._ell_fits_memory() or not sk._ell_fits_memory():
+        raise RuntimeError(f"{len(sub)} rows: not above one card's budget "
+                           "and within the mesh's")
+    psi = np.zeros(sk.dim, complex)
+    psi[sk._index_of(hf)[0]] = 1.0
+    base = {}
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
+    peer_bytes(reset=True)
+    t0 = time.perf_counter()
+    sk._ell_structure()
+    for d in base:
+        torch.cuda.synchronize(d)
+    build_s = time.perf_counter() - t0
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) - base[d]
+             for d in sorted(base, key=str)}
+    build_peer = peer_bytes(reset=True)
+    ell.ell_spmv_cuda.launches = 0
+    got = sk.evolve(psi)
+    torch.cuda.synchronize()
+    launches = ell.ell_spmv_cuda.launches
+    sharded_ms = warm_evolve_ms(sk, psi)
+    del sk
+    torch.cuda.empty_cache()
+    # the unsharded reference, its tables built past the budget check
+    t0 = time.perf_counter()
+    one._ell = one._build_ell_device(one.subspace)
+    torch.cuda.synchronize()
+    single_build_s = time.perf_counter() - t0
+    want = one.evolve(psi)
+    single_ms = warm_evolve_ms(one, psi)
+    del one
+    torch.cuda.empty_cache()
+    table_bytes = 4 * len(sub) + 8 * c * len(sub)
+    r = {"rows": len(sub), "C": c, "budget_rows_one_card": rows // 2,
+         "table_bytes": table_bytes, "build_s": build_s,
+         "unsharded_build_s": single_build_s,
+         "peak_alloc_bytes_by_card": peaks, "build_peer_bytes": build_peer,
+         "row_block_launches": launches,
+         "bit_equal": bool(np.array_equal(got, want)),
+         "warm_evolve_ms": sharded_ms, "unsharded_warm_evolve_ms": single_ms}
+    print("mesh above one card: " + json.dumps(r))
+    if not r["bit_equal"] or launches != 4 * 30 or \
+            max(peaks.values()) >= table_bytes:
+        raise RuntimeError(f"mesh above one card: {r}")
+    return r
+
+
+def mesh_sweep_check(mesh, substep, n):
+    """The x_sweep launches of a sharded Trotter substep against their
+    plain version: each run of in-block words, on every block, through the
+    substep's own gathered sweeps (``substep.block_runs``: the word tables
+    with the Z bits above the block folded into theta's sign) and through
+    ``x_sweep_reference`` on the same block inputs and the same folded
+    words; then, since TFIM's X words carry no Z bits, a substep of words
+    whose Z bits reach above the block (sign flipped on half the blocks)
+    against the plain rotations of the unfolded words over the whole 2^n
+    statevector.  Returns the largest |difference|; the smoke requires
+    0.0."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.parallel import (gather_statevector,
+                                                   make_sharded_substep,
+                                                   shard_statevector)
+    shift = n - int(np.log2(mesh.size))
+    err = 0.0
+
+    def gap(a, b):
+        return float(max((a[0] - b[0]).abs().max(),
+                         (a[1] - b[1]).abs().max()))
+
+    for run in substep.block_runs:
+        for d, (words, sweep) in enumerate(run):
+            dev = mesh.devices[d]
+            gen = torch.Generator(device=dev).manual_seed(d)
+            v = torch.randn(2, 1 << shift, generator=gen, device=dev)
+            re, im = v[0].contiguous(), v[1].contiguous()
+            err = max(err, gap(sweep(re, im),
+                               xs.x_sweep_reference(re, im, words, shift)))
+    dt = 0.05
+    terms = [(0.4 * (q + 1), 1 << q, (1 << (n - 1)) | (1 << 3), q % 4)
+             for q in range(shift)]
+    step, hr, hi = make_sharded_substep(mesh, n, [(0.3, 1 << (n - 1))],
+                                        terms, dt)
+    ones = [torch.ones_like(h_) for h_ in hr]
+    zeros = [torch.zeros_like(h_) for h_ in hi]
+    gen = torch.Generator(device=mesh.first).manual_seed(4)
+    v = torch.randn(2, 1 << n, generator=gen, device=mesh.first)
+    re, im = v[0].contiguous(), v[1].contiguous()
+    got = gather_statevector(mesh, *step(*shard_statevector(mesh, re, im),
+                                         ones, zeros))
+    words = [(c * dt / 2, xm, zm, ny) for c, xm, zm, ny in terms]
+    return max(err, gap(got, xs.x_sweep_reference(re, im,
+                                                  words + words[::-1], n)))
+
+
 # results/pt2_sweep_all.txt: ``benchmark.py --molecule all --pt2-only``'s
 # error against FCI in mHa, each molecule (the JAX package's record)
 PT2_SWEEP_MHA = {"h2": 0.0000, "lih": 0.0000, "h2o": 0.0001, "beh2": 0.0001,
@@ -2801,6 +3465,42 @@ def phase_entry_points(device="cuda", rehearsal=False):
     return res
 
 
+def mesh_input_n2_ccpvdz(device="cuda"):
+    """The card's cap states of N2/cc-pVDZ restricted SKQD, made as
+    ``phase_restricted`` makes them: one Selected-CI round of 600 from HF,
+    then the basis plus its top PT2-ranked externals up to
+    ``supported_evolution_dim``."""
+    from flow_guided_krylov_torch.examples import \
+        large_system_benchmark as lsb
+    from flow_guided_krylov_torch.krylov import (ResidualExpansionConfig,
+                                                 SelectedCIExpander)
+    from flow_guided_krylov_torch.krylov.skqd import (
+        build_restricted_subspace, supported_evolution_dim)
+    h = lsb.n2_ccpvdz(device)
+    hf = h.get_hf_state()
+    cfg = ResidualExpansionConfig(configs_per_iteration=600,
+                                  max_basis_size=50_000)
+    basis = SelectedCIExpander(h, cfg).expand_basis(hf[None, :])["basis"]
+    states = build_restricted_subspace(h, basis, supported_evolution_dim(h),
+                                       initial_state=hf)
+    return {"h": h, "basis": basis, "hf": hf, "states": states}
+
+
+def main_mesh_only():
+    """``python3 chip_smoke.py --only mesh``: the build and ``phase_mesh``
+    alone (on a host of four cards, the logical mesh and cuda:0..3), its
+    restricted states made by :func:`mesh_input_n2_ccpvdz` and the N2
+    pipeline's oracle the recorded FCI energy (``FCI_N2_REF``)."""
+    import torch
+    phase_device()
+    phase_build()
+    out = phase_mesh(mesh_input_n2_ccpvdz(), FCI_N2_REF)
+    print(json.dumps({"mesh_by_path": out["by_path"], "rows": out["rows"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     os.environ.setdefault("FGK_INTEGRAL_CACHE",
                           os.path.join(ROOT, ".fgk_cache"))
@@ -2809,6 +3509,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     import flow_guided_krylov_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:] == ["--only", "mesh"]:
+        return main_mesh_only()
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; "
+                         "none runs every phase, --only mesh the mesh")
     from flow_guided_krylov_torch.ops.x_sweep import TILE_BITS
     phase_device()
     phase_build()
@@ -2827,9 +3532,13 @@ def main():
     restricted = phase_restricted()
     spin_pipe = phase_spin_pipeline()
     eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
-    phase_multiword()
+    multiword = phase_multiword()
+    w4 = phase_skqd_w4(multiword["o3_stage3"])
+    mesh = phase_mesh(restricted["mesh_input"], n2["fci"])
+    del restricted["mesh_input"]
     phase_entry_points()
-    rows += sector["rows"] + restricted["rows"] + eigen["rows"]
+    rows += (sector["rows"] + restricted["rows"] + eigen["rows"]
+             + w4["rows"] + mesh["rows"])
     # paths named by the function that drove them: the CLIs' own
     # (flow_guided_krylov_torch/examples/) and the smoke's hand-driven ones
     lattice = "skqd_lattice_validation."
@@ -2841,13 +3550,19 @@ def main():
                "restricted": restricted["launches"],
                lattice + "run_exact_fullspace(tfim, 20)":
                    eigen["launches_cli"],
-               "eigensolvers": eigen["launches"]}
+               "eigensolvers": eigen["launches"],
+               "skqd_w4: ozone_ccpvdz_full restricted, evolution='ell'":
+                   w4["launches"]}
+    by_path.update({k: v for k, v in mesh["by_path"].items()
+                    if "row blocks" in k})
     if min(by_path.values()) <= 0:
         raise RuntimeError(f"a path never launched the ELL kernel: {by_path}")
     sweep_by_path = {
         lattice + "run_large_spin(tfim, 24)": spin["x_sweep_launches"],
         lattice + "run_large_spin_pipeline(tfim, 24)":
             spin_pipe["tfim"]["kernel_launches"]["x_sweep"]}
+    sweep_by_path.update({k: v for k, v in mesh["by_path"].items()
+                          if "trotter" in k})
     if min(sweep_by_path.values()) <= 0:
         raise RuntimeError(f"a path never launched x_sweep: {sweep_by_path}")
     main_row = next(r for r in rows if r["table"] == "n2" and r["B"] == 2
@@ -2881,7 +3596,8 @@ def main():
         "replaces": "flow_guided_krylov_tpu/ops/pallas_trotter.py:66",
         "launches": sum(sweep_by_path.values()),
         "launches_by_path": sweep_by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in sweep_rows),
+        "max_abs_err": max([r["max_abs_err"] for r in sweep_rows]
+                           + [mesh["sweep_err"]]),
         "ms": low["ms"], "device_ms": low["device_ms"],
         "plain_ms": low["plain_ms"],
         "bound_ms": low["bound_ms"], "bound_by": low["bound_by"],

@@ -12,6 +12,17 @@
 // L = ceil(C / S) (the last may be shorter or empty); ops/ell_spmv.py
 // picks S from (N, C).
 //
+// Row-block form (the mesh's sharded products, parallel/sharded_matvec.py):
+// the tables hold rows [row0, row0 + n_rows) of an operator over n_psi
+// states, as (C, n_rows); psi is whole, (B, n_psi), and
+//
+//   out[b, i] = diag[i] * psi[b, row0 + i] + sum_s seg_s[b, i],  i < n_rows.
+//
+// S is the whole operator's, so a row sums in the same order in every
+// block as in the square product (row0 = 0, n_rows = n_psi), and a
+// row-sharded product equals the square one bit for bit.  The route (psi
+// in shared memory or through L2) is decided by n_psi.
+//
 // What bounds it: memory.  The tables cross the bus once, 8 bytes per
 // entry (70 MB at N2's 14,400 x 609), and psi is read and out written
 // once: 0.021 ms at 3.35 TB/s on N2.  Each entry's psi gather depends on
@@ -67,13 +78,14 @@ ell_spmv_kernel(const float* __restrict__ diag,
                 const int32_t* __restrict__ tgt_t,
                 const float* __restrict__ psi,
                 float* __restrict__ out,
-                int64_t n, int64_t c, int segs) {
+                int64_t n, int64_t n_psi, int64_t row0, int64_t c,
+                int segs) {
   // table rows fetched per group: U (element, target) pairs and B * U psi
   // gathers in flight per lane before the in-order accumulation
   constexpr int U = 16 / B;
   extern __shared__ float smem[];
   float* part = smem;                          // [warps][B][32] partial sums
-  float* sp = smem + (kThreads / 32) * B * 32;  // [B][n] psi, PSI_SMEM only
+  float* sp = smem + (kThreads / 32) * B * 32;  // [B][n_psi], PSI_SMEM only
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int groups = (blockDim.x >> 5) / segs;   // row groups per block
@@ -87,7 +99,7 @@ ell_spmv_kernel(const float* __restrict__ diag,
   if (PSI_SMEM) {
     // stage psi with 16-byte loads, several in flight per thread (a
     // dependent load per element would leave the copy latency-bound)
-    const int64_t total = B * n;
+    const int64_t total = B * n_psi;
     int64_t done = 0;
     if ((reinterpret_cast<uintptr_t>(psi) & 15) == 0) {
       const float4* p4 = reinterpret_cast<const float4*>(psi);
@@ -125,7 +137,7 @@ ell_spmv_kernel(const float* __restrict__ diag,
         for (int u = 0; u < U; ++u)
 #pragma unroll
           for (int b = 0; b < B; ++b)
-            v[b][u] = gather<PSI_SMEM>(PSI_SMEM ? sp : psi, b * n + t[u]);
+            v[b][u] = gather<PSI_SMEM>(PSI_SMEM ? sp : psi, b * n_psi + t[u]);
 #pragma unroll
         for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -138,7 +150,7 @@ ell_spmv_kernel(const float* __restrict__ diag,
 #pragma unroll
         for (int b = 0; b < B; ++b)
           acc[b] = __fadd_rn(acc[b], __fmul_rn(
-              e, gather<PSI_SMEM>(PSI_SMEM ? sp : psi, b * n + t)));
+              e, gather<PSI_SMEM>(PSI_SMEM ? sp : psi, b * n_psi + t)));
       }
     }
 #pragma unroll
@@ -147,7 +159,7 @@ ell_spmv_kernel(const float* __restrict__ diag,
     if (s == 0 && live) {
 #pragma unroll
       for (int b = 0; b < B; ++b) {
-        float r = __fmul_rn(diag[i], psi[b * n + i]);
+        float r = __fmul_rn(diag[i], psi[b * n_psi + row0 + i]);
         for (int q = 0; q < segs; ++q)
           r = __fadd_rn(r, part[((warp + q) * B + b) * 32 + lane]);
         out[b * n + i] = r;
@@ -159,24 +171,28 @@ ell_spmv_kernel(const float* __restrict__ diag,
 
 template <int B, bool PSI_SMEM>
 int launch(const float* diag, const float* elems_t, const int32_t* tgt_t,
-           const float* psi, float* out, int64_t n, int64_t c, int segs,
-           cudaStream_t stream) {
+           const float* psi, float* out, int64_t n, int64_t n_psi,
+           int64_t row0, int64_t c, int segs, cudaStream_t stream) {
   auto kernel = ell_spmv_kernel<B, PSI_SMEM>;
   size_t smem = sizeof(float) * (kThreads / 32) * B * 32;
-  if (PSI_SMEM) smem += sizeof(float) * B * n;
+  if (PSI_SMEM) smem += sizeof(float) * B * n_psi;
   const int threads = 32 * segs * ((kThreads / 32) / segs);
   const int64_t n_groups = (n + 31) / 32;
   const int groups = threads / (32 * segs);
   int64_t blocks = (n_groups + groups - 1) / groups;
   // the launch's attributes and residency, asked once per (device, shared
-  // memory size, block size) and kept: the queries cost host time on
-  // every Lanczos step otherwise
-  static int last_dev = -1, last_threads = 0, resident = 0;
-  static size_t last_smem = 0;
+  // memory size, block size) and kept for each device: the queries cost
+  // host time on every Lanczos step otherwise, and a mesh's row blocks
+  // launch on its cards in turn
+  constexpr int kMaxDevices = 64;
+  static int last_threads[kMaxDevices] = {}, resident[kMaxDevices] = {};
+  static size_t last_smem[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev != last_dev || smem != last_smem || threads != last_threads) {
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem != last_smem[dev] || threads != last_threads[dev]) {
     int sms = 0, per_sm = 0;
     if ((err = cudaFuncSetAttribute(
              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -187,14 +203,13 @@ int launch(const float* diag, const float* elems_t, const int32_t* tgt_t,
                 &per_sm, kernel, threads, smem)) != cudaSuccess)
       return static_cast<int>(err);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    last_dev = dev;
-    last_smem = smem;
-    last_threads = threads;
-    resident = sms * per_sm;
+    last_smem[dev] = smem;
+    last_threads[dev] = threads;
+    resident[dev] = sms * per_sm;
   }
-  if (PSI_SMEM && blocks > resident) blocks = resident;
+  if (PSI_SMEM && blocks > resident[dev]) blocks = resident[dev];
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      diag, elems_t, tgt_t, psi, out, n, c, segs);
+      diag, elems_t, tgt_t, psi, out, n, n_psi, row0, c, segs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,23 +218,30 @@ int launch(const float* diag, const float* elems_t, const int32_t* tgt_t,
 extern "C" {
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
-// All pointers are device pointers; psi and out hold b rows of n floats.
-// segs in {1, 2, 4, 8, 16, 32}; psi_smem = 1 stages psi in shared memory
-// (4 * b * n bytes must fit beside 4 KB-8 KB of partial sums).
+// All pointers are device pointers.  The tables and diag hold n rows
+// (rows row0 .. row0 + n - 1 of the operator); psi holds b rows of n_psi
+// floats and out b rows of n floats, with row0 + n <= n_psi (the square
+// product: row0 = 0, n = n_psi).  segs in {1, 2, 4, 8, 16, 32};
+// psi_smem = 1 stages psi in shared memory (4 * b * n_psi bytes must fit
+// beside 4 KB-8 KB of partial sums).
 int fgk_ell_spmv(const float* diag, const float* elems_t,
                  const int32_t* tgt_t, const float* psi, float* out,
-                 int64_t n, int64_t c, int b, int segs, int psi_smem,
-                 void* stream) {
+                 int64_t n, int64_t n_psi, int64_t row0, int64_t c, int b,
+                 int segs, int psi_smem, void* stream) {
   if (n <= 0) return 0;
   if (segs < 1 || segs > kThreads / 32 || (segs & (segs - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (row0 < 0 || row0 + n > n_psi)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b == 1)
-    return psi_smem ? launch<1, true>(diag, elems_t, tgt_t, psi, out, n, c, segs, s)
-                    : launch<1, false>(diag, elems_t, tgt_t, psi, out, n, c, segs, s);
+    return psi_smem
+        ? launch<1, true>(diag, elems_t, tgt_t, psi, out, n, n_psi, row0, c, segs, s)
+        : launch<1, false>(diag, elems_t, tgt_t, psi, out, n, n_psi, row0, c, segs, s);
   if (b == 2)
-    return psi_smem ? launch<2, true>(diag, elems_t, tgt_t, psi, out, n, c, segs, s)
-                    : launch<2, false>(diag, elems_t, tgt_t, psi, out, n, c, segs, s);
+    return psi_smem
+        ? launch<2, true>(diag, elems_t, tgt_t, psi, out, n, n_psi, row0, c, segs, s)
+        : launch<2, false>(diag, elems_t, tgt_t, psi, out, n, n_psi, row0, c, segs, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,6 +18,19 @@ Every shape in the step is static (B samples, M accumulated keys), so it
 never stops the host: no ``unique``, boolean-mask indexing, ``nonzero`` or
 ``.item()``.  The host reads one packed metrics vector per step.  The
 optimizers follow optax's ``chain(clip_by_global_norm, adamw(cosine))``.
+
+With a ``mesh`` (``parallel.make_mesh``, its first device the
+Hamiltonian's) the step is data-parallel in one process, where the JAX
+package put sharding constraints on the batch, the connections and H's
+rows.  The parameters and both optimizers stay on the first device; every
+network evaluation splits its rows over the mesh's entries, each shard
+running ``torch.func.functional_call`` on copies of the parameters on its
+entry's device (a differentiable ``.to``), and the outputs come back to
+the first device, where the losses are taken as without a mesh and one
+optimizer step follows.  The dense route's H is row-sharded
+(``parallel.shard_hamiltonian_rows``).  Sampling, dedup and the
+accumulated basis stay on the first device, so one seed draws the same
+configurations with or without a mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ import torch
 
 from ..ops.bits import (keys_device, to_device, to_host, unkey_device,
                         unpack_device)
+from ..parallel.mesh import canonical
+from ..parallel.mesh import to as mesh_to
 from ..utils.system_scaler import AdaptiveAdjuster
 
 __all__ = ["PhysicsGuidedConfig", "PhysicsGuidedFlowTrainer",
@@ -165,10 +180,16 @@ class PhysicsGuidedFlowTrainer:
     """
 
     def __init__(self, hamiltonian, flow, nqs,
-                 config: Optional[PhysicsGuidedConfig] = None):
+                 config: Optional[PhysicsGuidedConfig] = None,
+                 mesh=None):
         self.h = hamiltonian
         self.config = c = config or PhysicsGuidedConfig()
         self.device = hamiltonian.device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if (self.mesh is not None
+                and canonical(mesh.first) != canonical(self.device)):
+            raise ValueError(f"the mesh's first device {mesh.first} must be "
+                             f"the Hamiltonian's {self.device}")
         init = torch.Generator().manual_seed(c.seed)
         flow.reset_parameters(init)
         nqs.reset_parameters(init)
@@ -191,6 +212,11 @@ class PhysicsGuidedFlowTrainer:
                     and self.connection_table.n_configs
                     <= c.dense_local_energy_max_dim):
                 self._h_dense = dense_hamiltonian(self.connection_table)
+                if self.mesh is not None:
+                    from ..parallel.sharded_matvec import \
+                        shard_hamiltonian_rows
+                    self._h_dense = shard_hamiltonian_rows(self.mesh,
+                                                           self._h_dense)
         self.route = ("dense" if self._h_dense is not None else
                       "table" if self.connection_table is not None else
                       "fly")
@@ -220,10 +246,47 @@ class PhysicsGuidedFlowTrainer:
 
     def _nqs_chunked(self, occ: torch.Tensor) -> torch.Tensor:
         """Gradient-free NQS log-amplitudes of (R, 2n) rows, in chunks of
-        ``nqs_chunk_size`` rows."""
-        chunk = max(1, min(self.config.nqs_chunk_size, occ.shape[0]))
-        return torch.cat([self.nqs(occ[i:i + chunk])
-                          for i in range(0, occ.shape[0], chunk)])
+        ``nqs_chunk_size`` rows (each shard's rows in its own chunks with a
+        mesh)."""
+        chunk = max(1, self.config.nqs_chunk_size)
+
+        def chunked(fn, rows):
+            return torch.cat([fn(rows[i:i + chunk])
+                              for i in range(0, max(rows.shape[0], 1),
+                                             chunk)])
+
+        if self.mesh is not None:
+            return self._sharded(self.nqs, occ, wrap=chunked)
+        return chunked(self.nqs, occ)
+
+    def _sharded(self, module: torch.nn.Module, rows: torch.Tensor,
+                 method: Optional[str] = None, wrap=None) -> torch.Tensor:
+        """``module(rows)`` (or ``module.<method>(rows)``) with the rows
+        split over the mesh: each shard runs ``torch.func.functional_call``
+        on copies of the parameters and buffers on its entry's device, and
+        the results are concatenated on the first device.  The copies are
+        differentiable, so gradients flow back to the first device's
+        parameters.  ``wrap(fn, rows)`` applies fn over a shard's rows."""
+        mesh = self.mesh
+        call = _Call(module, method)
+        state = {"m." + k: v for k, v in
+                 list(module.named_parameters())
+                 + list(module.named_buffers())}
+        per = -(-rows.shape[0] // mesh.size)
+        outs = []
+        for d, dev in enumerate(mesh.devices):
+            part = rows[d * per:(d + 1) * per]
+            if not len(part):
+                continue
+            local = {k: mesh_to(v, dev) for k, v in state.items()}
+
+            def fn(x, local=local):
+                return torch.func.functional_call(call, local, (x,))
+
+            part = mesh_to(part, dev)
+            out = wrap(fn, part) if wrap is not None else fn(part)
+            outs.append(mesh_to(out, mesh.first))
+        return torch.cat(outs)
 
     @torch.no_grad()
     def local_energies(self, packed_u: torch.Tensor, la_x: torch.Tensor
@@ -236,7 +299,11 @@ class PhysicsGuidedFlowTrainer:
             idx = t.lookup(packed_u)
             la_all = self._nqs_chunked(t.occ)
             psi = torch.exp(la_all - la_all.max())
-            hpsi = self._h_dense @ psi
+            if self.mesh is not None:
+                from ..parallel.sharded_matvec import sharded_matvec_fn
+                hpsi = sharded_matvec_fn(self.mesh)(self._h_dense, psi)
+            else:
+                hpsi = self._h_dense @ psi
             return hpsi[idx] / psi[idx].clamp_min(1e-30)
         if self.route == "table":
             diag, elems, occ_y = \
@@ -323,14 +390,22 @@ class PhysicsGuidedFlowTrainer:
         occ_u = unpack_device(packed_u, self.h.n_orbitals)
         neg_inf = torch.full((B,), -torch.inf, device=configs.device)
 
+        nqs, log_prob = self.nqs, self.flow.log_prob
+        if self.mesh is not None:
+            def nqs(x):
+                return self._sharded(self.nqs, x)
+
+            def log_prob(x):
+                return self._sharded(self.flow, x, "log_prob")
+
         with torch.no_grad():
-            la_x = self.nqs(occ_u)
+            la_x = nqs(occ_u)
             e_loc = torch.where(valid, self.local_energies(packed_u, la_x),
                                 torch.zeros_like(la_x))
             p_nqs = torch.softmax(torch.where(valid, 2.0 * la_x, neg_inf), 0)
             energy = (e_loc * p_nqs).sum()
 
-        lp = torch.where(valid, self.flow.log_prob(occ_u), neg_inf)
+        lp = torch.where(valid, log_prob(occ_u), neg_inf)
         log_flow = torch.where(valid, torch.log_softmax(lp, 0),
                                torch.zeros_like(lp))
         p_flow = torch.exp(log_flow) * valid
@@ -340,7 +415,7 @@ class PhysicsGuidedFlowTrainer:
         flow_loss = (c.teacher_weight * teacher + c.physics_weight * physics
                      - c.entropy_weight * entropy) / (energy.abs() + 1.0)
         f_grads = torch.autograd.grad(flow_loss, self.flow_opt.params)
-        nqs_loss = ((e_loc - energy) * (2.0 * self.nqs(occ_u)) * p_nqs).sum()
+        nqs_loss = ((e_loc - energy) * (2.0 * nqs(occ_u)) * p_nqs).sum()
         n_grads = torch.autograd.grad(nqs_loss, self.nqs_opt.params)
         self.flow_opt.step(f_grads)
         self.nqs_opt.step(n_grads)
@@ -494,6 +569,20 @@ class PhysicsGuidedFlowTrainer:
                           f"{self._acc_count:,} configs")
                 break
         return self.history
+
+
+class _Call(torch.nn.Module):
+    """``module.<method>`` (``forward`` when None) as a module's forward,
+    so that ``torch.func.functional_call`` can run any method."""
+
+    def __init__(self, module: torch.nn.Module, method: Optional[str]):
+        super().__init__()
+        self.m = module
+        self.method = method
+
+    def forward(self, x):
+        return (self.m(x) if self.method is None
+                else getattr(self.m, self.method)(x))
 
 
 def dense_hamiltonian(table) -> torch.Tensor:

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import sys
 from abc import ABC, abstractmethod
-from typing import Optional, Tuple
+import copy
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -63,6 +64,31 @@ class Hamiltonian(ABC):
     def connections_np(self, packed: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
         ...
+
+    # the attributes that hold closures or tables built on ``self.device``,
+    # each with its empty value: a replica on another device starts them
+    # empty (each subclass lists its own)
+    DEVICE_CACHES: Dict[str, object] = {}
+
+    def on(self, device) -> "Hamiltonian":
+        """This Hamiltonian with its device closures on ``device``: itself
+        on its own device, else a shallow copy (kept, one a device) whose
+        :attr:`DEVICE_CACHES` start empty, so its connection and diagonal
+        functions build their tables on ``device``."""
+        from ..parallel.mesh import canonical
+        device = canonical(device)
+        if device == canonical(self.device):
+            return self
+        replicas = self.__dict__.setdefault("_replicas", {})
+        r = replicas.get(device)
+        if r is None:
+            r = copy.copy(self)
+            r.__dict__.pop("_replicas", None)
+            r.device = device
+            for attr, empty in self.DEVICE_CACHES.items():
+                setattr(r, attr, empty)
+            replicas[device] = r
+        return r
 
     # ------------------------------------------------------------------
     # Key encoding (host)

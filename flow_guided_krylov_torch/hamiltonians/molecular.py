@@ -39,6 +39,8 @@ class MolecularHamiltonian(Hamiltonian):
     """Molecular Hamiltonian with particle-conserving determinant algebra."""
 
     pack_words = 2
+    DEVICE_CACHES = {"_conn_fn": None, "_device_table": None,
+                     "_device_table_built": False}
 
     def __init__(self, integrals: MolecularIntegrals, device):
         self.integrals = integrals

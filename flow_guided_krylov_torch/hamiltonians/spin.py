@@ -142,6 +142,7 @@ def _flip2_anti_device(v: torch.Tensor, i: int, j: int, n: int
 
 class _SpinBase(Hamiltonian):
     pack_words = 1
+    DEVICE_CACHES = {"_device_ops": None}
 
     def _init_common(self, num_spins: int, device) -> None:
         self.pack_words = _spin_words(num_spins)

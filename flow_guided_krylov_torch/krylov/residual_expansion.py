@@ -1,7 +1,7 @@
 """Selected-CI basis expansion with PT2 importance (stage 3).
 
-Counterpart of ``flow_guided_krylov_tpu/krylov/residual_expansion.py``,
-single device, for every packing of ``hamiltonians/``:
+Counterpart of ``flow_guided_krylov_tpu/krylov/residual_expansion.py``
+for every packing of ``hamiltonians/``:
 
 * :class:`SelectedCIExpander` — one round: diagonalize the current basis
   (host float64), accumulate signed couplings <i|H|Phi> = sum_j c_j <i|H|j>
@@ -26,6 +26,12 @@ int64 a configuration up to two words (spins up to 64 sites included);
 4-word determinants (33..64 orbitals) key on an (alpha, beta) int64 pair,
 ordered by two stable sorts (``hamiltonians/base.py::lex_order``), and
 on the host on ``KEY128`` records.
+
+With a ``mesh`` (``parallel.make_mesh``) the device blocks of the scoring
+and of the exact correction split their source rows over the mesh's
+entries: each shard connects, sorts, segment-sums and takes its own top-K
+on its entry's device, and the host's grouped sum merges the shards'
+partial couplings exactly, as it merges blocks.
 """
 
 from __future__ import annotations
@@ -144,8 +150,10 @@ class SelectedCIExpander:
 
     def __init__(self, hamiltonian: Hamiltonian,
                  config: Optional[ResidualExpansionConfig] = None,
-                 use_device_scoring: Optional[bool] = None):
+                 use_device_scoring: Optional[bool] = None,
+                 mesh=None):
         self.h = hamiltonian
+        self.mesh = mesh
         self.config = config or ResidualExpansionConfig()
         self._last_coeffs: Optional[np.ndarray] = None
         self.use_device_scoring = use_device_scoring
@@ -157,8 +165,9 @@ class SelectedCIExpander:
         self._inc_H = None
         self._pend: list = []
         self._pt2_row_cap: Optional[int] = None
-        # the float64 connection function of the multiword exact dE2
-        self._conn_f64 = None
+        # the float64 connection functions of the multiword exact dE2, by
+        # device
+        self._conn_f64: Dict[torch.device, object] = {}
         # largest off-diagonal |H_ij| of a sample of sources, found once
         # for the source screen
         self._hmax: Optional[float] = None
@@ -351,7 +360,9 @@ class SelectedCIExpander:
         sort: an exact top-k whose ties keep the lower key, as the JAX
         package's top-k does on the CPU.  With ``pt2_sort_rows`` a block
         first keeps its rows of largest |c_j H_ij| the same way (ties keep
-        the lower row)."""
+        the lower row).  With a mesh each block's rows split over its
+        entries (:meth:`_shards`), each shard keeping its own top K, as
+        the JAX package's ``shard_map`` does."""
         h = self.h
         dev = h.device
         C = h.n_connections
@@ -367,14 +378,16 @@ class SelectedCIExpander:
         cap_rows = int(c.pt2_sort_rows)
         if cap_rows:
             K_max = min(K_max, cap_rows)
-        keys, couplings = [], []
-        for i in range(0, len(src), self._pt2_row_cap):
-            rows = to_device(src[i:i + self._pt2_row_cap], dev)
-            coeff = torch.as_tensor(src_c[i:i + self._pt2_row_cap],
-                                    dtype=torch.float32, device=dev)
-            conn, elems = h.connections_device(rows)
+        def block(h_d, rows_np, coeff_np):
+            """One block (or mesh shard) on ``h_d.device``: host keys and
+            float64 couplings of its top K_max keys."""
+            dev = h_d.device
+            rows = to_device(rows_np, dev)
+            coeff = torch.as_tensor(coeff_np, dtype=torch.float32,
+                                    device=dev)
+            conn, elems = h_d.connections_device(rows)
             contrib = (elems * coeff[:, None]).reshape(-1)
-            key = h.keys_device(conn).flatten(0, 1)
+            key = h_d.keys_device(conn).flatten(0, 1)
             del conn, elems
             if cap_rows and contrib.numel() > cap_rows:
                 sel = torch.sort(contrib.abs(), descending=True,
@@ -383,9 +396,29 @@ class SelectedCIExpander:
             key, coupling = _sum_by_key(key, contrib)
             idx = torch.sort(coupling * coupling, descending=True,
                              stable=True).indices[:K_max]
-            keys.append(h.keys_to_host(key[idx]))
-            couplings.append(coupling[idx].double().cpu().numpy())
+            return (h_d.keys_to_host(key[idx]),
+                    coupling[idx].double().cpu().numpy())
+
+        keys, couplings = [], []
+        for i in range(0, len(src), self._pt2_row_cap):
+            blk = slice(i, i + self._pt2_row_cap)
+            for h_d, rows in self._shards(src[blk]):
+                k, cp = block(h_d, src[blk][rows], src_c[blk][rows])
+                keys.append(k)
+                couplings.append(cp)
         return h.unkey(np.concatenate(keys)), np.concatenate(couplings)
+
+    def _shards(self, rows: np.ndarray):
+        """[(Hamiltonian on a device, row slice)]: the whole block on the
+        Hamiltonian's device, or with a mesh one contiguous slice of
+        ceil(B / size) rows an entry, on that entry's device (empty slices
+        dropped)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return [(self.h, slice(0, len(rows)))]
+        per = -(-len(rows) // self.mesh.size)
+        return [(self.h.on(dev), slice(d * per, (d + 1) * per))
+                for d, dev in enumerate(self.mesh.devices)
+                if d * per < len(rows)]
 
     def _pt2_candidates(self, basis: np.ndarray, coeffs: np.ndarray,
                         energy: float
@@ -536,14 +569,16 @@ class SelectedCIExpander:
                 "n_external": int(ext.sum()), "exact": True}
 
     def _pt2_correction_block(self, src: np.ndarray, src_c: np.ndarray,
-                              basis_keys: torch.Tensor, cap: int):
+                              basis_keys: torch.Tensor, cap: int, h=None):
         """One source block on the device: all connections, one int64 key
         each, a stable sort, the signed coupling of every unique key, the
         externals by ``searchsorted`` against the sorted basis keys, an
         exact descending sort by coupling^2 and its top ``cap`` rows.
         Returns (keys, couplings, scores, number of weighted externals);
-        :func:`_sum_by_key` makes two calls bit-equal."""
-        h = self.h
+        :func:`_sum_by_key` makes two calls bit-equal.  ``h`` is the
+        Hamiltonian on the block's device (a mesh shard's), by default
+        the expander's."""
+        h = h or self.h
         dev = h.device
         conn, elems = h.connections_device(to_device(src, dev))
         coeff = torch.as_tensor(src_c, dtype=torch.float32, device=dev)
@@ -584,8 +619,9 @@ class SelectedCIExpander:
 
         ``pad_to`` pinned the JAX package's compiled block shape across a
         growth loop; eager torch compiles nothing, so it is accepted and
-        ignored.  One device only: the JAX package's mesh-sharded blocks
-        belong to ROADMAP Queue 1, Multi-device."""
+        ignored.  With a mesh each block's source rows split over its
+        entries (:meth:`_shards`), each shard with its own top ``cap``, and
+        the host sums the shards' partial couplings as it sums blocks."""
         del pad_to
         h = self.h
         C = h.n_connections
@@ -610,13 +646,19 @@ class SelectedCIExpander:
 
         exact = True
         key_parts, coup_parts = [], []
+        keys_on = {}
         for i in range(0, S, S_blk):
-            key_s, coup_s, score_s, n_valid = self._pt2_correction_block(
-                basis[i:i + S_blk], coeffs[i:i + S_blk], basis_keys, cap)
-            exact = exact and n_valid <= cap
-            valid = score_s > 0.0
-            key_parts.append(h.keys_to_host(key_s[valid]))
-            coup_parts.append(coup_s[valid].double().cpu().numpy())
+            src, src_c = basis[i:i + S_blk], coeffs[i:i + S_blk]
+            for h_d, rows in self._shards(src):
+                bk = keys_on.get(h_d.device)
+                if bk is None:
+                    bk = keys_on[h_d.device] = basis_keys.to(h_d.device)
+                key_s, coup_s, score_s, n_valid = self._pt2_correction_block(
+                    src[rows], src_c[rows], bk, cap, h=h_d)
+                exact = exact and n_valid <= cap
+                valid = score_s > 0.0
+                key_parts.append(h.keys_to_host(key_s[valid]))
+                coup_parts.append(coup_s[valid].double().cpu().numpy())
 
         keys = np.concatenate(key_parts)
         coupling = np.concatenate(coup_parts)
@@ -654,43 +696,30 @@ class SelectedCIExpander:
         float64)``) from the rows the block already holds.  The JAX
         package took float32 elements and the float32 device diagonal (a
         known fault of 1e-5 to 1e-4 Ha a denominator); a host
-        ``diagonal_np`` over 10^8 rows would take too long."""
-        h = self.h
-        dev = h.device
-        C = h.n_connections
+        ``diagonal_np`` over 10^8 rows would take too long.
+
+        With a mesh each block's rows split over its entries
+        (:meth:`_shards`), each shard with its own window; the JAX
+        package's mesh branch here is broken (its row count and its
+        ``out_specs`` arity), so the sharded sum is held to this one on
+        a single device."""
+        C = self.h.n_connections
         S = len(basis)
         S_blk = max(64, min(self._pt2_row_cap // 2,
                             1 << (max(S, 1) - 1).bit_length()))
-        fetch = int(min(cap + S, S_blk * C))
-        if self._conn_f64 is None:
-            from ..ops.slater import make_connection_fn_w2
-            self._conn_f64 = make_connection_fn_w2(h.tables, dev,
-                                                   dtype=torch.float64)
         exact = True
         key_parts, coup_parts, diag_parts = [], [], []
         for i in range(0, S, S_blk):
-            conn, elems = self._conn_f64(to_device(basis[i:i + S_blk], dev))
-            coeff = torch.as_tensor(coeffs[i:i + S_blk],
-                                    dtype=torch.float64, device=dev)
-            contrib = (elems * coeff[:, None]).reshape(-1)
-            key = h.keys_device(conn).flatten(0, 1)
-            del conn, elems
-            key, coupling = _sum_by_key(key, contrib)
-            score = coupling * coupling
-            n_valid = int((score > 0).sum())
-            exact = exact and n_valid <= fetch
-            idx = torch.sort(score, descending=True,
-                             stable=True).indices[:min(fetch, n_valid)]
-            key, coupling = key[idx], coupling[idx]
-            del score, idx
-            rows = h.unkey_device(key)
-            diag = torch.cat([h.diagonal_device(rows[j:j + (1 << 20)],
-                                                dtype=torch.float64)
-                              for j in range(0, max(len(rows), 1),
-                                             1 << 20)])
-            key_parts.append(h.keys_to_host(key))
-            coup_parts.append(coupling.cpu().numpy())
-            diag_parts.append(diag.cpu().numpy())
+            src, src_c = basis[i:i + S_blk], coeffs[i:i + S_blk]
+            for h_d, rows in self._shards(src):
+                n_rows = len(src[rows])
+                fetch = int(min(cap + S, n_rows * C))
+                k, cp, dg, ok = self._multiword_block(
+                    h_d, src[rows], src_c[rows], fetch)
+                exact = exact and ok
+                key_parts.append(k)
+                coup_parts.append(cp)
+                diag_parts.append(dg)
 
         keys = np.concatenate(key_parts)
         coupling = np.concatenate(coup_parts)
@@ -704,7 +733,7 @@ class SelectedCIExpander:
         diag = diag_all[first_idx]
         ext = coupling != 0.0
         if len(uniq):
-            bk = np.sort(h.keys(basis))
+            bk = np.sort(self.h.keys(basis))
             pos = np.searchsorted(uniq, bk)
             in_range = pos < len(uniq)
             pos_v = pos[in_range]
@@ -712,6 +741,36 @@ class SelectedCIExpander:
         de2 = float(np.sum(coupling[ext] ** 2 / (energy - diag[ext])))
         return {"de2": de2, "corrected_energy": energy + de2,
                 "n_external": int(ext.sum()), "exact": exact}
+
+    def _multiword_block(self, h, src: np.ndarray, src_c: np.ndarray,
+                         fetch: int):
+        """One block (or mesh shard) of the multiword dE2 on ``h.device``:
+        (host keys, float64 couplings, float64 diagonals of its top
+        ``fetch`` rows by coupling^2, True when every weighted row fits)."""
+        dev = h.device
+        conn_f64 = self._conn_f64.get(dev)
+        if conn_f64 is None:
+            from ..ops.slater import make_connection_fn_w2
+            conn_f64 = self._conn_f64[dev] = make_connection_fn_w2(
+                h.tables, dev, dtype=torch.float64)
+        conn, elems = conn_f64(to_device(src, dev))
+        coeff = torch.as_tensor(src_c, dtype=torch.float64, device=dev)
+        contrib = (elems * coeff[:, None]).reshape(-1)
+        key = h.keys_device(conn).flatten(0, 1)
+        del conn, elems
+        key, coupling = _sum_by_key(key, contrib)
+        score = coupling * coupling
+        n_valid = int((score > 0).sum())
+        idx = torch.sort(score, descending=True,
+                         stable=True).indices[:min(fetch, n_valid)]
+        key, coupling = key[idx], coupling[idx]
+        del score, idx
+        rows = h.unkey_device(key)
+        diag = torch.cat([h.diagonal_device(rows[j:j + (1 << 20)],
+                                            dtype=torch.float64)
+                          for j in range(0, max(len(rows), 1), 1 << 20)])
+        return (h.keys_to_host(key), coupling.cpu().numpy(),
+                diag.cpu().numpy(), n_valid <= fetch)
 
 
 class ResidualBasedExpander:
@@ -779,6 +838,7 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
                                  config: Optional[ResidualExpansionConfig] = None,
                                  use_pt2: bool = True,
                                  verbose: bool = False,
+                                 mesh=None,
                                  pt2_correct: bool = False,
                                  pt2_cap: Optional[int] = None,
                                  pt2_checkpoints: Optional[list] = None
@@ -800,7 +860,7 @@ def iterative_residual_expansion(hamiltonian: Hamiltonian,
     if cfg.max_basis_size < len(basis) + cfg.configs_per_iteration:
         needed = len(basis) + cfg.max_iterations * cfg.configs_per_iteration
         cfg = dataclasses.replace(cfg, max_basis_size=needed)
-    expander = (SelectedCIExpander(hamiltonian, cfg) if use_pt2
+    expander = (SelectedCIExpander(hamiltonian, cfg, mesh=mesh) if use_pt2
                 else ResidualBasedExpander(hamiltonian, cfg))
     energies = []
     best_energy = np.inf

@@ -36,6 +36,7 @@ does not fit, raises.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from math import comb
 from typing import Dict, List, Optional, Tuple
@@ -61,22 +62,28 @@ class EvolutionBudgetError(RuntimeError):
     """The subspace fits no device propagator in the device's memory."""
 
 
-def supported_evolution_dim(h: Hamiltonian) -> int:
+def supported_evolution_dim(h: Hamiltonian, mesh=None) -> int:
     """Largest subspace dimension that ``evolve(auto)`` can propagate on
     ``h.device``: the dense rows (capped at the JAX package's 20,000-row
     crossover, as :meth:`SampleBasedKrylovDiagonalization.
     _dense_evolution_cap`) or the ELL table's entry budget.  The
-    pipeline's stage-4 routing reads it."""
+    pipeline's stage-4 routing reads it.
+
+    A mesh row-shards both: dense rows scale by sqrt(d), ELL entries by
+    d, d counting physical devices only (a logical mesh on one card gains
+    nothing).  The JAX package's 0.9 GB ``program_safe_entries`` cap was
+    a limit of its TPU worker and is not carried."""
     from ..utils.memory import MemoryBudget
+    n_dev = mesh.n_physical if mesh is not None else 1
     budget = MemoryBudget.for_device(h.device)
-    dense = min(budget.dense_hamiltonian_cap(), 20_000)
-    ell = budget.connection_table_entries() // (h.n_connections + 1)
+    dense = int(min(budget.dense_hamiltonian_cap(), 20_000) * np.sqrt(n_dev))
+    ell = budget.connection_table_entries() * n_dev // (h.n_connections + 1)
     return max(dense, int(ell))
 
 
 def build_restricted_subspace(h: Hamiltonian, basis: np.ndarray, cap: int,
-                              initial_state: Optional[np.ndarray] = None
-                              ) -> np.ndarray:
+                              initial_state: Optional[np.ndarray] = None,
+                              mesh=None) -> np.ndarray:
     """Evolution subspace for restricted molecular SKQD: the given basis
     plus its top PT2-ranked external candidates, at most ``cap`` states.
 
@@ -87,7 +94,8 @@ def build_restricted_subspace(h: Hamiltonian, basis: np.ndarray, cap: int,
                                      SelectedCIExpander)
     basis = np.atleast_2d(np.asarray(basis, np.uint32))
     cap = int(cap)
-    exp = SelectedCIExpander(h, ResidualExpansionConfig(max_basis_size=cap))
+    exp = SelectedCIExpander(h, ResidualExpansionConfig(max_basis_size=cap),
+                             mesh=mesh)
     rows = []
     if initial_state is not None:
         rows.append(np.atleast_2d(np.asarray(initial_state, np.uint32)))
@@ -329,6 +337,40 @@ def _diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
     return re * hr - im * hi, re * hi + im * hr
 
 
+class _PairKeys:
+    """Membership search over a set of (alpha, beta) int64 key pairs with
+    one int64 ``searchsorted``: the set's distinct alpha keys and distinct
+    beta keys, sorted, rank each channel, and a pair becomes
+    ``rank_a * n_beta + rank_b``.  The composite orders the set as the
+    lexicographic pair order does, and a pair whose alpha or beta key the
+    set lacks is no member."""
+
+    def __init__(self, keys: torch.Tensor):
+        self.alpha = torch.unique(keys[:, 0])
+        self.beta = torch.unique(keys[:, 1])
+        self.own = self.search_key(keys)[0]
+
+    def on(self, device) -> "_PairKeys":
+        """The same search with its channel keys on ``device``."""
+        from ..parallel.mesh import to
+        out = copy.copy(self)
+        out.alpha, out.beta = to(self.alpha, device), to(self.beta, device)
+        return out
+
+    @staticmethod
+    def _rank(values: torch.Tensor, keys: torch.Tensor):
+        pos = torch.searchsorted(values, keys).clamp_(max=len(values) - 1)
+        return pos, values[pos] == keys
+
+    def search_key(self, keys: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(..., 2) key pairs -> ((...) composite keys, (...) True where
+        both channels' keys occur in the set)."""
+        ra, hit_a = self._rank(self.alpha, keys[..., 0].contiguous())
+        rb, hit_b = self._rank(self.beta, keys[..., 1].contiguous())
+        return ra * len(self.beta) + rb, hit_a & hit_b
+
+
 # ---------------------------------------------------------------------------
 # SKQD
 # ---------------------------------------------------------------------------
@@ -337,28 +379,35 @@ class SampleBasedKrylovDiagonalization:
     """Classical SKQD: in the particle-conserving subspace for molecules;
     in the magnetization sector, the full space, or (past
     ``trotter_threshold`` sites) a Trotterized statevector for spins; or
-    within the given ``subspace_states`` (restricted SKQD)."""
+    within the given ``subspace_states`` (restricted SKQD).
+
+    ``mesh`` (``parallel.make_mesh``; its first device the Hamiltonian's)
+    row-shards the dense and ELL propagators' H over its entries and
+    holds a Trotter statevector as one block an entry
+    (``parallel/``); the Lanczos vectors and the sampling stay on the
+    first device."""
 
     def __init__(self, hamiltonian: Hamiltonian,
                  config: Optional[SKQDConfig] = None,
                  initial_state: Optional[np.ndarray] = None,
-                 subspace_states: Optional[np.ndarray] = None):
+                 mesh=None, subspace_states: Optional[np.ndarray] = None):
         self.h = hamiltonian
         self.config = config or SKQDConfig()
         self.device = hamiltonian.device
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import canonical
+            if canonical(mesh.first) != canonical(self.device):
+                raise ValueError(f"the mesh's first device {mesh.first} "
+                                 f"must be the Hamiltonian's {self.device}")
         self.is_molecular = hasattr(hamiltonian, "n_alpha")
-        if self.is_molecular and hamiltonian.pack_words > 2:
-            raise NotImplementedError(
-                "SKQD over 4-word determinants (more than 32 orbitals), "
-                "restricted SKQD included, needs a device ELL build on "
-                "two-word keys, not ported yet (ROADMAP.md, Queue 1, item 2 "
-                "remainder: restricted SKQD at W = 4)")
         if not self.is_molecular and hamiltonian.pack_words > 1:
             raise NotImplementedError(
-                "SKQD on more than 31 spins (two words a configuration) is "
-                "not run by the JAX package either (its run_large_spin_sci "
-                "goes to Selected-CI); ROADMAP.md, Queue 1, item 2 "
-                "remainder: spin SKQD at W = 2")
+                "SKQD on more than 31 spins (two words a configuration): "
+                "the JAX package has no such path (it packs the Neel state "
+                "into one uint32, and its run_large_spin_sci goes to "
+                "Selected-CI), so the port does not carry it (ROADMAP.md, "
+                "item 2 remainder (b))")
         # an explicit evolution subspace (restricted SKQD): evolve within
         # the given packed states, not the enumerated full space
         self.restricted = subspace_states is not None
@@ -454,12 +503,21 @@ class SampleBasedKrylovDiagonalization:
             self._h_sparse = self.h.to_sparse(self.subspace)
         return self._h_sparse
 
-    def _device_hamiltonian(self) -> torch.Tensor:
+    def _device_hamiltonian(self):
+        """The dense float32 subspace H on the device, or with a mesh its
+        row blocks (``parallel.shard_hamiltonian_rows``: zero rows pad it
+        to a multiple of the mesh's size)."""
         if self._h_dense_dev is None:
-            self._h_dense_dev = torch.as_tensor(
-                self.subspace_hamiltonian.toarray().astype(np.float32),
-                device=self.device)
+            h_np = self.subspace_hamiltonian.toarray().astype(np.float32)
+            if self.mesh is not None:
+                from ..parallel.sharded_matvec import shard_hamiltonian_rows
+                self._h_dense_dev = shard_hamiltonian_rows(self.mesh, h_np)
+            else:
+                self._h_dense_dev = torch.as_tensor(h_np, device=self.device)
         return self._h_dense_dev
+
+    def _n_physical(self) -> int:
+        return self.mesh.n_physical if self.mesh is not None else 1
 
     def _dense_evolution_cap(self) -> int:
         """Max subspace dim for the dense device propagator.  The 20,000
@@ -468,18 +526,20 @@ class SampleBasedKrylovDiagonalization:
         launch-bound either way (14-52 ms), dense ahead at 5,000-10,000
         rows of 2,835 connections, ELL ahead at 14,400 rows of 609 and,
         twofold, at 30,513 rows of 2,835 (``chip_smoke.py``), so the
-        ceiling stays."""
+        ceiling stays.  A mesh raises it by sqrt(physical devices)."""
         from ..utils.memory import MemoryBudget
-        return min(MemoryBudget.for_device(self.device)
-                   .dense_hamiltonian_cap(), 20_000)
+        cap = min(MemoryBudget.for_device(self.device)
+                  .dense_hamiltonian_cap(), 20_000)
+        return int(cap * np.sqrt(self._n_physical()))
 
     def _ell_fits_memory(self) -> bool:
         """True when the fixed-degree (index, element) table of the
-        subspace fits the connection-table budget."""
+        subspace fits the connection-table budget (times the mesh's
+        physical devices: the rows shard over them)."""
         from ..utils.memory import MemoryBudget
         entries = self.dim * (self.h.n_connections + 1)
         return entries <= (MemoryBudget.for_device(self.device)
-                           .connection_table_entries())
+                           .connection_table_entries() * self._n_physical())
 
     # ------------------------------------------------------------------
     # Statevector Trotter propagator (large spin systems)
@@ -511,11 +571,25 @@ class SampleBasedKrylovDiagonalization:
         masks = [_pauli_masks(w) for w in words]
         dt_sub = self.config.time_step / max(self.config.num_trotter_steps, 1)
         diag = [(c, zm) for c, (xm, zm, _) in zip(coeffs, masks) if xm == 0]
-        offd = [(c * dt_sub / 2, xm, zm, ny)
+        offd = [(c, xm, zm, ny)
                 for c, (xm, zm, ny) in zip(coeffs, masks) if xm != 0]
         tile = 1 << min(TILE_BITS, n)
-        seq = ([w for w in offd if w[1] < tile]
-               + [w for w in offd if w[1] >= tile])
+        offd = ([w for w in offd if w[1] < tile]
+                + [w for w in offd if w[1] >= tile])
+        if self._sharded_statevector():
+            # one block an entry: in-block words through per-block x_sweep
+            # tables, the others by block exchange (parallel/sharded_trotter)
+            from ..parallel.sharded_trotter import make_sharded_substep
+            step, hr, hi = make_sharded_substep(self.mesh, n, diag, offd,
+                                                dt_sub)
+
+            def sharded(re, im):
+                return step(re, im, hr, hi)
+
+            sharded.block_runs = step.block_runs
+            self._trotter = sharded
+            return sharded
+        seq = [(c * dt_sub / 2, xm, zm, ny) for c, xm, zm, ny in offd]
         sweeps = make_gathered_sweeps(n, seq + seq[::-1])
         hp_re, hp_im = _half_phase(diag, n, dt_sub, self.device)
 
@@ -527,10 +601,15 @@ class SampleBasedKrylovDiagonalization:
         self._trotter = substep
         return substep
 
-    def _evolve_trotter(self, re: torch.Tensor, im: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _sharded_statevector(self) -> bool:
+        from ..parallel.sharded_trotter import mesh_supports_statevector
+        return (self.mesh is not None
+                and mesh_supports_statevector(self.mesh, self.h.n_sites))
+
+    def _evolve_trotter(self, re, im):
         """exp(-i dt H) on a device (re, im) statevector pair, in
-        ``num_trotter_steps`` substeps."""
+        ``num_trotter_steps`` substeps; with a mesh the pair is two lists
+        of blocks (``parallel.shard_statevector``)."""
         substep = self._trotter_ops()
         for _ in range(max(self.config.num_trotter_steps, 1)):
             re, im = substep(re, im)
@@ -552,16 +631,22 @@ class SampleBasedKrylovDiagonalization:
                                 device=self.device))
 
     def _evolve_device(self, psi: np.ndarray) -> np.ndarray:
+        """Dense Lanczos propagator; with a mesh its matvec is row-sharded
+        and the vectors keep the subspace's length (the padding rows never
+        reach them)."""
         re, im = self._psi_to_device(psi)
-        out_r, out_i = lanczos_expm(self._device_hamiltonian(), re, im,
-                                    self.config.time_step,
-                                    min(self.config.lanczos_dim, self.dim))
+        H = self._device_hamiltonian()
+        m = min(self.config.lanczos_dim, self.dim)
+        if self.mesh is not None:
+            from ..parallel.sharded_matvec import sharded_lanczos_expm
+            out_r, out_i = sharded_lanczos_expm(
+                self.mesh, H, re, im, self.config.time_step, m)
+        else:
+            out_r, out_i = lanczos_expm(H, re, im, self.config.time_step, m)
         return out_r.cpu().numpy() + 1j * out_i.cpu().numpy()
 
     def _build_ell_device(self, states: np.ndarray,
-                          chunk: Optional[int] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+                          chunk: Optional[int] = None, mesh=None):
         """(diag (N,), elems_t (C, N), tgt_t (C, N)) of H restricted to
         the packed ``states``, built on the device: only the states cross
         the host link.  A connection's target is found by ``searchsorted``
@@ -571,10 +656,22 @@ class SampleBasedKrylovDiagonalization:
         conserved sector, a sampled Krylov basis, a PT2-ranked restricted
         molecular subspace.
 
+        4-word determinants key as (alpha, beta) int64 pairs
+        (:class:`_PairKeys`): each channel's key is ranked among the set's
+        distinct keys of that channel, and the pair searches as the one
+        int64 ``rank_a * n_beta + rank_b``, which orders the set as the
+        lexicographic pair order does.
+
         ``chunk`` rows are worked at a time (sized from the memory budget
         and C when None) and written, transposed, into column slices of
         the preallocated (C, N) tables: the finished tables are the only
-        table-sized allocation."""
+        table-sized allocation.  With a ``mesh`` the tables are its row
+        blocks (``parallel.ShardedEll``: zero rows pad them to a multiple
+        of the mesh's size), each allocated on its entry's device and
+        built there chunk by chunk by the Hamiltonian's replica on that
+        device (``Hamiltonian.on``), so no device holds more than its own
+        block, the search keys and one chunk, and only the keys are
+        copied between devices."""
         from ..utils.memory import MemoryBudget
         states = np.atleast_2d(np.asarray(states, np.uint32))
         dim = len(states)
@@ -585,57 +682,99 @@ class SampleBasedKrylovDiagonalization:
         dev = self.device
         if chunk is None:
             chunk = MemoryBudget.for_device(dev).build_chunk_rows(C)
-        sorted_keys, order = torch.sort(
-            self.h.keys_device(to_device(states, dev)))
+        keys = self.h.keys_device(to_device(states, dev))
+        pairs = _PairKeys(keys) if keys.dim() == 2 else None
+        if pairs is not None:
+            keys = pairs.own
+        sorted_keys, order = torch.sort(keys)
+        del keys
         order = order.to(torch.int32)
-        conn_fn = self.h.connections_device
-        diag = torch.empty(dim, dtype=torch.float32, device=dev)
-        elems = torch.empty((C, dim), dtype=torch.float32, device=dev)
-        tgt = torch.empty((C, dim), dtype=torch.int32, device=dev)
-        for start in range(0, dim, chunk):
-            rows = to_device(states[start:start + chunk], dev)
-            stop = start + rows.shape[0]
-            conn, el = conn_fn(rows)                    # (M, C, W), (M, C)
-            keys = self.h.keys_device(conn)
-            del conn
-            pos = torch.searchsorted(sorted_keys, keys).clamp_(max=dim - 1)
-            hit = sorted_keys[pos] == keys
-            del keys
-            tgt[:, start:stop] = torch.where(hit, order[pos], 0).T
-            elems[:, start:stop] = torch.where(hit, el, 0.0).T
-            diag[start:stop] = self.h.diagonal_device(rows)
-        return diag, elems, tgt
+        if mesh is None:
+            spans, pad = [(0, dim, dev)], 0
+        else:
+            from ..parallel.mesh import blocks_of, split_rows
+            _, pad = split_rows(mesh, dim)
+            spans = [(row0, rows, d) for (row0, rows), d
+                     in zip(blocks_of(mesh, dim), mesh.devices)]
+        from ..parallel.mesh import to
+        blocks = []
+        for row0, rows, bdev in spans:
+            # the block's rows are worked on its own device: the
+            # Hamiltonian's replica there and a copy of the search keys
+            h = self.h.on(bdev)
+            skeys, sorder = to(sorted_keys, bdev), to(order, bdev)
+            bpairs = pairs if pairs is None else pairs.on(bdev)
+            diag = torch.zeros(rows, dtype=torch.float32, device=bdev)
+            elems = torch.zeros((C, rows), dtype=torch.float32, device=bdev)
+            tgt = torch.zeros((C, rows), dtype=torch.int32, device=bdev)
+            for start in range(row0, min(dim, row0 + rows), chunk):
+                part = to_device(states[start:min(dim, row0 + rows,
+                                                  start + chunk)], bdev)
+                a, b = start - row0, start - row0 + part.shape[0]
+                conn, el = h.connections_device(part)   # (M, C, W), (M, C)
+                keys = h.keys_device(conn)
+                del conn
+                if bpairs is not None:
+                    keys, member = bpairs.search_key(keys)
+                pos = torch.searchsorted(skeys, keys).clamp_(max=dim - 1)
+                hit = skeys[pos] == keys
+                if bpairs is not None:
+                    hit &= member
+                del keys
+                tgt[:, a:b] = torch.where(hit, sorder[pos], 0).T
+                elems[:, a:b] = torch.where(hit, el, 0.0).T
+                diag[a:b] = h.diagonal_device(part)
+            blocks.append((row0, diag, elems, tgt))
+        if mesh is None:
+            return blocks[0][1:]
+        from ..parallel.sharded_matvec import ShardedEll
+        return ShardedEll(mesh, blocks, dim, C, pad)
 
     def _ell_structure(self):
         """ELL (diag, elems_t, target_idx_t) on the device, tables in the
         (C, N) layout of ``ops/ell_spmv.py``: from the full-space
         connection table for an unrestricted molecule, else built on the
-        device for the subspace's states (:meth:`_build_ell_device`).
+        device for the subspace's states (:meth:`_build_ell_device`), as
+        for 4-word determinants, which have no connection table.  With a
+        mesh every subspace takes the device build, which writes each row
+        block on its entry's device (``parallel.ShardedEll``).
 
         The JAX package also kept a host build for Hamiltonians without
         device connections or without a 32-bit key; here every Hamiltonian
-        has ``connections_device`` and an int64 key, so that route has no
-        counterpart."""
+        has ``connections_device`` and an int64 key (a pair at four
+        words), so that route has no counterpart."""
         if self._ell is None:
             if not self._ell_fits_memory():
                 raise EvolutionBudgetError(
                     f"ELL table of {self.dim} x {self.h.n_connections} "
                     f"entries exceeds the memory budget")
-            if self.is_molecular and not self.restricted:
+            t = None
+            if (self.is_molecular and not self.restricted
+                    and self.mesh is None):
                 from ..utils.connection_table import build_connection_table
                 t = build_connection_table(
                     self.h, max_entries=self.dim * self.h.n_connections)
+            if t is not None:
                 self._ell = (t.diag, t.elems.T.contiguous(),
                              t.target_idx.T.contiguous())
             else:
-                self._ell = self._build_ell_device(self.subspace)
+                self._ell = self._build_ell_device(self.subspace,
+                                                   mesh=self.mesh)
         return self._ell
 
+    def _ell_matvec(self):
+        """The ELL product as a closure over (B, N) stacks: the kernel on
+        the tables, or the mesh's row-block products."""
+        ell = self._ell_structure()
+        if self.mesh is not None:
+            return ell.matvec
+        return lambda v: ell_spmv(*ell, v)
+
     def _evolve_device_ell(self, psi: np.ndarray) -> np.ndarray:
-        diag, elems, tgt = self._ell_structure()
+        mv = self._ell_matvec()
         re, im = self._psi_to_device(psi)
-        out_r, out_i = lanczos_expm_ell(
-            diag, elems, tgt, re, im, self.config.time_step,
+        out_r, out_i = _lanczos_expm_impl(
+            mv, re, im, self.config.time_step,
             min(self.config.lanczos_dim, self.dim))
         return out_r.cpu().numpy() + 1j * out_i.cpu().numpy()
 
@@ -709,11 +848,20 @@ class SampleBasedKrylovDiagonalization:
         re = torch.zeros(self.dim, dtype=torch.float32, device=self.device)
         re[start] = 1.0
         im = torch.zeros_like(re)
+        sharded = self._sharded_statevector()
+        if sharded:
+            from ..parallel.sharded_trotter import (gather_statevector,
+                                                    shard_statevector)
+            re, im = shard_statevector(self.mesh, re, im)
         samples = []
         for k in range(c.max_krylov_dim):
             u = torch.rand(c.shots_per_krylov, generator=self.generator,
                            device=self.device)
-            idx = _sample_idx_cdf(re ** 2 + im ** 2, u)
+            # a sharded state is gathered to the first device to sample
+            full_re, full_im = (gather_statevector(self.mesh, re, im)
+                                if sharded else (re, im))
+            idx = _sample_idx_cdf(full_re ** 2 + full_im ** 2, u)
+            del full_re, full_im
             vals, counts = torch.unique(idx, return_counts=True)
             samples.append(dict(zip(vals.tolist(), counts.tolist())))
             if k < c.max_krylov_dim - 1:
@@ -849,15 +997,18 @@ class SampleBasedKrylovDiagonalization:
                 return float(path.read_text())
             except (OSError, ValueError):
                 pass
-        from ..postprocessing.eigensolver import lanczos_ground_state_ell
+        from ..postprocessing.eigensolver import lanczos_ground_state_mv
         from ..utils.memory import MemoryBudget
-        ell = self._ell_structure()
+        mv = self._ell_matvec()
         m_fit = MemoryBudget.for_device(self.device).lanczos_ell_m(
-            ell[0].shape[0], ell[1].shape[0], m_max=m)
+            self.dim, self.h.n_connections, m_max=m)
         # a block capped by memory recovers its depth through restarts
         n_restart = max(1, -(-m // m_fit))
-        e_dev, v = lanczos_ground_state_ell(
-            *ell, m=min(m_fit, self.dim), restarts=n_restart)
+        # with a mesh the vectors keep the subspace's length: the padding
+        # rows never reach them
+        e_dev, v = lanczos_ground_state_mv(
+            mv, self.dim, self.device, m=min(m_fit, self.dim),
+            restarts=n_restart)
         if not refine_host:
             return e_dev
         H = self.subspace_hamiltonian
@@ -898,8 +1049,8 @@ class FlowGuidedSKQD(SampleBasedKrylovDiagonalization):
     def __init__(self, hamiltonian: Hamiltonian, nf_basis: np.ndarray,
                  config: Optional[SKQDConfig] = None,
                  initial_state: Optional[np.ndarray] = None,
-                 subspace_states: Optional[np.ndarray] = None):
-        super().__init__(hamiltonian, config, initial_state,
+                 mesh=None, subspace_states: Optional[np.ndarray] = None):
+        super().__init__(hamiltonian, config, initial_state, mesh=mesh,
                          subspace_states=subspace_states)
         self.nf_basis = np.atleast_2d(np.asarray(nf_basis, np.uint32))
 

@@ -11,7 +11,10 @@ Differences from the JAX loader: the library is built into the port's
 build directory by :func:`..utils.build.build_library` (temporary name,
 then ``os.rename``), a failed compile raises instead of passing silently,
 and an overflowing call is retried chunk by chunk instead of allocating
-the whole result at once.
+the whole result at once.  A call is cut into row spans, one a core (at
+most 16), that run at once (ctypes releases the GIL for the native
+call); the spans' results are concatenated in row order, so the arrays
+equal one sequential call's.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import ctypes
 import functools
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,6 +37,8 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 # source rows per native call; the result buffer starts at 256 hits a row
 _ROWS_PER_CALL = 1 << 16
+# worker threads of a call: one a core, at most this many
+_MAX_THREADS = 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +99,9 @@ def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
         key_a = np.ascontiguousarray(sorted_keys, np.uint64)
         key_b = np.zeros(len(key_a), np.uint64)
     ints = [np.ascontiguousarray(x) for x in (t.h1, t.jj, t.ex, t.h2)]
-    parts = []
-    for start in range(0, len(a), _ROWS_PER_CALL):
-        ca = a[start:start + _ROWS_PER_CALL]
-        cb = b[start:start + _ROWS_PER_CALL]
+
+    def call(start: int, stop: int):
+        ca, cb = a[start:stop], b[start:stop]
         cap = max(1024, 256 * len(ca))
         while True:
             rows = np.empty(cap, np.int32)
@@ -108,8 +113,14 @@ def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray
             if total <= cap:
                 break
             cap = int(total)     # this chunk's exact count
-        parts.append((rows[:total] + np.int32(start), pos[:total],
-                      vals[:total]))
+        return rows[:total] + np.int32(start), pos[:total], vals[:total]
+
+    n = len(a)
+    threads = min(os.cpu_count() or 1, _MAX_THREADS)
+    step = max(1, min(_ROWS_PER_CALL, -(-n // threads)))
+    spans = [(s, min(n, s + step)) for s in range(0, n, step)]
+    with ThreadPoolExecutor(max(1, min(threads, len(spans)))) as pool:
+        parts = list(pool.map(lambda sp: call(*sp), spans))
     if not parts:
         return (np.empty(0, np.int32), np.empty(0, np.int64),
                 np.empty(0, np.float64))

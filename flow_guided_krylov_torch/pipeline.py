@@ -22,12 +22,14 @@ the stage-4 skip rules and the SKQD validation (energies below exact -
 trains stage 1 on the subspace energy (``flows/training.py``);
 ``checkpoint_dir`` saves the stage-1 trainer and the stage-2 and stage-3
 results at their boundaries, and ``run(resume=True)`` restores stages 2
-and 3 from them.  Branches not ported raise ``NotImplementedError``
-naming their ROADMAP entry: more than one device, and three branches
-that fail in the JAX package: the subspace-energy objective
+and 3 from them.  ``n_devices > 1`` (or a mesh set on ``pipeline.mesh``)
+shards stage 1's trainer, stage 3's scorer and stage 4's SKQD over a
+one-process device mesh (``parallel/``).  Branches not ported raise
+``NotImplementedError`` naming their ROADMAP entry: three that fail in
+the JAX package, the subspace-energy objective
 (``use_local_energy=False``) together with checkpointing, the discrete
-flow on a molecule (``use_particle_conserving_flow=False``) and
-multiword configurations (more than 32 orbitals or 31 spins).
+flow on a molecule (``use_particle_conserving_flow=False``) and multiword
+configurations (more than 32 orbitals or 31 spins).
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ __all__ = ["PipelineConfig", "FlowGuidedKrylovPipeline",
 
 MHA = 1e-3
 CHEMICAL_ACCURACY = 1.6e-3  # 1 kcal/mol in Hartree
-
-_ROADMAP = "ROADMAP.md, Queue 1"
 
 
 @dataclass
@@ -136,7 +136,7 @@ class PipelineConfig:
     # Checkpointing: stage-boundary saves, ``run(resume=True)``
     checkpoint_dir: Optional[str] = None
 
-    # Multi-device (not ported yet: more than one raises)
+    # Multi-device: more than one builds a ('data', 'basis') mesh (parallel/)
     n_devices: Optional[int] = None
 
     # Misc
@@ -244,12 +244,20 @@ class FlowGuidedKrylovPipeline:
                 "FlowNQSTrainer lacks: AttributeError: 'FlowNQSTrainer' "
                 "object has no attribute '_acc_keys'); a fault of the "
                 "reference, ROADMAP.md, Queue 3")
-        if c.n_devices is not None and c.n_devices > 1:
-            raise NotImplementedError(
-                "n_devices > 1 needs the mesh code, not ported yet "
-                f"({_ROADMAP} item 3, multi-device)")
-
         self.device = hamiltonian.device
+        # n_devices > 1: a ('data', 'basis') mesh for stage 1's trainer,
+        # stage 3's expander and stage 4's SKQD, as in the JAX package;
+        # ``cuda:0`` .. ``cuda:{n-1}`` for a Hamiltonian on a card (fewer
+        # cards raise), n ``cpu`` entries for one on the CPU.  A mesh may
+        # also be set on ``self.mesh`` before ``run()`` (a logical one:
+        # ``make_mesh(n, devices=["cuda:0"] * n)``)
+        self.mesh = None
+        if c.n_devices is not None and c.n_devices > 1:
+            from .parallel import make_mesh
+            self.mesh = make_mesh(
+                c.n_devices,
+                devices=(None if self.device.type == "cuda"
+                         else [self.device] * c.n_devices))
         self._spin_sector_n_up: Optional[int] = None
         if self.is_molecular:
             self.n_valid = hamiltonian.n_valid_configs
@@ -320,7 +328,7 @@ class FlowGuidedKrylovPipeline:
             dense_local_energy_max_dim=mem.dense_hamiltonian_cap(),
             seed=c.seed, verbose=c.verbose)
         self.trainer = PhysicsGuidedFlowTrainer(self.h, self.flow, self.nqs,
-                                                tcfg)
+                                                tcfg, mesh=self.mesh)
         if c.use_ci_seeding:
             seed_basis = self._ci_seed_basis()
             self.trainer._update_accumulated_basis(seed_basis,
@@ -504,7 +512,7 @@ class FlowGuidedKrylovPipeline:
                                + c.residual_iterations
                                * c.residual_configs_per_iter),
             use_davidson=c.use_davidson)
-        expander = SelectedCIExpander(self.h, rcfg)
+        expander = SelectedCIExpander(self.h, rcfg, mesh=self.mesh)
 
         basis = self.nf_basis
         best_energy = np.inf
@@ -558,12 +566,21 @@ class FlowGuidedKrylovPipeline:
     # ------------------------------------------------------------------
 
     def _supported_evolution_dim(self) -> int:
-        return supported_evolution_dim(self.h)
+        return supported_evolution_dim(self.h, self.mesh)
 
     def _statevector_sites_cap(self) -> int:
         """Most spins whose 2^n statevector the Trotter propagator holds
-        on this device."""
-        return MemoryBudget.for_device(self.device).statevector_sites_cap()
+        on this device; a mesh of d physical cards (a power of two) that
+        can shard the larger state adds log2(d) sites, as in the JAX
+        package (a logical mesh adds none)."""
+        cap = MemoryBudget.for_device(self.device).statevector_sites_cap()
+        if self.mesh is not None:
+            from .parallel.sharded_trotter import mesh_supports_statevector
+            d = self.mesh.n_physical
+            extra = d.bit_length() - 1 if d & (d - 1) == 0 else 0
+            if extra and mesh_supports_statevector(self.mesh, cap + extra):
+                cap += extra
+        return cap
 
     def run_skqd(self) -> Dict:
         c = self.config
@@ -595,7 +612,7 @@ class FlowGuidedKrylovPipeline:
             else:
                 restricted_states = build_restricted_subspace(
                     self.h, residual_basis, cap,
-                    initial_state=self.hf_state)
+                    initial_state=self.hf_state, mesh=self.mesh)
                 if c.verbose:
                     print(f"  restricted evolution subspace: "
                           f"{len(restricted_states):,} states "
@@ -639,7 +656,7 @@ class FlowGuidedKrylovPipeline:
                        regularization=c.skqd_regularization,
                        seed=c.seed,
                        verbose=c.verbose),
-            initial_state=self.hf_state,
+            initial_state=self.hf_state, mesh=self.mesh,
             subspace_states=restricted_states)
         out = skqd.run_with_nf()
 

@@ -41,7 +41,8 @@ from ..ops.ell_spmv import ell_spmv
 
 __all__ = ["solve_generalized_eigenvalue", "regularize_overlap_matrix",
            "DavidsonSolver", "adaptive_eigensolver", "lanczos_ground_state",
-           "lanczos_ground_state_ell", "lanczos_ground_state_stepped",
+           "lanczos_ground_state_ell", "lanczos_ground_state_mv",
+           "lanczos_ground_state_stepped",
            "full_diagonal_device", "exact_fullspace_ground_state"]
 
 
@@ -279,14 +280,24 @@ def lanczos_ground_state_ell(diag: torch.Tensor, elems: torch.Tensor,
     m-step solve from the previous ground vector.  Stops once a restart
     moves the energy by less than ``rtol`` (one host read per restart).
     """
-    n = diag.shape[0]
+    return lanczos_ground_state_mv(lambda x: ell_spmv(diag, elems, tgt, x),
+                                   diag.shape[0], diag.device, m=m, v0=v0,
+                                   restarts=restarts, rtol=rtol)
+
+
+def lanczos_ground_state_mv(mv: Callable[[torch.Tensor], torch.Tensor],
+                            n: int, device, m: int = 120,
+                            v0: Optional[torch.Tensor] = None,
+                            restarts: int = 1, rtol: float = 1e-7
+                            ) -> Tuple[float, torch.Tensor]:
+    """:func:`lanczos_ground_state_ell` over any symmetric matvec closure
+    on n-vectors of ``device`` (the mesh's row-sharded ELL products)."""
     m = min(m, n)
     if v0 is None:
-        v0 = torch.ones(n, dtype=torch.float32, device=diag.device)
+        v0 = torch.ones(n, dtype=torch.float32, device=device)
 
     def solve(start):
-        e, v = _ritz_ground(*_lanczos_tridiag_mv(
-            lambda x: ell_spmv(diag, elems, tgt, x), start, m))
+        e, v = _ritz_ground(*_lanczos_tridiag_mv(mv, start, m))
         return float(e), v
 
     e, v = solve(v0)

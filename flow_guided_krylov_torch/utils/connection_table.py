@@ -66,12 +66,12 @@ def build_connection_table(hamiltonian, max_entries: int = 50_000_000,
                            chunk: int = 2048
                            ) -> Optional[DeviceConnectionTable]:
     """Build the table on ``hamiltonian.device``, or None when it would
-    hold more than ``max_entries`` connections."""
+    hold more than ``max_entries`` connections or the determinants take
+    four words."""
     if hamiltonian.pack_words > 2:
-        raise NotImplementedError(
-            "a connection table over 4-word determinants (more than 32 "
-            "orbitals) needs two-word keys, not ported yet (ROADMAP.md, "
-            "Queue 1, item 2 remainder)")
+        # 4-word determinants (more than 32 orbitals): no single int64 key,
+        # and no enumerable space a table would serve; as in the JAX package
+        return None
     if hamiltonian.n_valid_configs * hamiltonian.n_connections > max_entries:
         return None
     basis = hamiltonian.enumerate_basis()

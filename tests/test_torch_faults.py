@@ -104,6 +104,7 @@ def test_pipeline_docstring_lists_only_what_still_raises():
     assert "restricted-subspace stage 4" not in doc
     assert "spin Hamiltonians" not in raising
     for still in ("use_local_energy=False", "checkpointing",
-                  "more than one device",
                   "use_particle_conserving_flow=False"):
         assert still in raising, still
+    # more than one device is ported (the mesh, parallel/)
+    assert "more than one device" not in raising

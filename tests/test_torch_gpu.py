@@ -781,3 +781,109 @@ def test_subspace_step_on_card_matches_cpu(lih_cuda):
     assert abs(float(f_c) - float(f_d)) <= 2e-6 * max(1.0, abs(float(f_c)))
     for a, b in zip(cpu.nqs.parameters(), dev.nqs.parameters()):
         assert (a.detach() - b.detach().cpu()).abs().max() <= 0.05 * 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The row-block ELL kernel and the mesh on the card (a logical mesh of
+# four cuda:0 entries)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_row_block_kernel_equals_plain(lih_ell, b):
+    """Row blocks through the row-block kernel: each equal to its plain
+    version and their concatenation to the square kernel, bit for bit, on
+    both routes."""
+    diag, el_t, tgt_t = lih_ell
+    n = diag.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    psi = torch.randn(b, n, generator=gen, device="cuda")
+    cuts = (0, 1, n // 3, n // 2 + 7, n)
+    for on_chip in (True, False):
+        parts = []
+        for a, z in zip(cuts[:-1], cuts[1:]):
+            d = diag[a:z].contiguous()
+            e = el_t[:, a:z].contiguous()
+            t = tgt_t[:, a:z].contiguous()
+            before = ell.ell_spmv_cuda.launches
+            got = ell.ell_spmv_cuda(d, e, t, psi, psi_on_chip=on_chip,
+                                    row0=a)
+            torch.cuda.synchronize()
+            assert ell.ell_spmv_cuda.launches == before + 1
+            want = ell.ell_spmv_reference(d, e, t, psi, a)
+            assert torch.equal(got, want)
+            parts.append(got)
+        assert torch.equal(torch.cat(parts, -1),
+                           ell.ell_spmv_cuda(diag, el_t, tgt_t, psi))
+    with pytest.raises(ValueError, match="leave"):
+        ell.ell_spmv_cuda(diag[:8].contiguous(), el_t[:, :8].contiguous(),
+                          tgt_t[:, :8].contiguous(), psi, row0=n - 4)
+
+
+def test_sharded_ell_evolve_on_card_is_bit_equal(card):
+    """Heisenberg-16's S_z = 0 sector over a logical mesh of four cuda:0
+    entries: the sharded ELL evolve equals the unsharded one bit for bit,
+    through the row-block kernel."""
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    from flow_guided_krylov_torch.krylov import (
+        SampleBasedKrylovDiagonalization, SKQDConfig)
+    from flow_guided_krylov_torch.parallel import make_mesh
+    hz = np.zeros(16)
+    hz[0] = 0.1
+    h = HeisenbergHamiltonian(16, 1.0, 1.0, 1.0, h_z=hz, device="cuda")
+    neel = np.array([sum(1 << i for i in range(0, 16, 2))], np.uint32)
+    cfg = SKQDConfig(evolution="ell")
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    one = SampleBasedKrylovDiagonalization(h, cfg, initial_state=neel)
+    sk = SampleBasedKrylovDiagonalization(h, cfg, initial_state=neel,
+                                          mesh=mesh)
+    psi = np.zeros(sk.dim, complex)
+    psi[sk._index_of(neel)[0]] = 1.0
+    before = ell.ell_spmv_cuda.launches
+    out = sk.evolve(psi)
+    assert ell.ell_spmv_cuda.launches > before
+    assert np.array_equal(out, one.evolve(psi))
+
+
+def test_sharded_trotter_block_tables_on_card(card):
+    """TFIM-16 over four blocks on the card: the per-block x_sweep tables
+    (the Z bits above the block folded into theta) give the plain
+    rotations' bits, block by block, and the sharded substep the
+    single-device one's."""
+    from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_torch.krylov import (
+        SampleBasedKrylovDiagonalization, SKQDConfig)
+    from flow_guided_krylov_torch.parallel import (gather_statevector,
+                                                   make_mesh,
+                                                   make_sharded_substep,
+                                                   shard_statevector)
+    mesh = make_mesh(4, devices=["cuda:0"] * 4)
+    n, shift = 16, 14
+    dt = 0.05
+    terms = [(0.4 * (q + 1), 1 << q, (1 << 15) | (1 << 3), q % 4)
+             for q in range(shift)]
+    words = [(c * dt / 2, xm, zm, ny) for c, xm, zm, ny in terms]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    v = torch.randn(2, 1 << n, generator=gen, device="cuda")
+    step, hr, hi = make_sharded_substep(mesh, n, [(0.3, 1 << 15)], terms,
+                                        dt)
+    ones = [torch.ones_like(h_) for h_ in hr]
+    zeros = [torch.zeros_like(h_) for h_ in hi]
+    re, im = shard_statevector(mesh, v[0].contiguous(), v[1].contiguous())
+    before = xs.x_sweep_cuda.launches
+    gr, gi = gather_statevector(mesh, *step(re, im, ones, zeros))
+    torch.cuda.synchronize()
+    assert xs.x_sweep_cuda.launches > before
+    seq = words + words[::-1]
+    wr, wi = xs.x_sweep_reference(v[0].contiguous(), v[1].contiguous(),
+                                  seq, n)
+    assert torch.equal(gr, wr) and torch.equal(gi, wi)
+    h = TransverseFieldIsing(16, h=0.5, device="cuda")
+    cfg = SKQDConfig(evolution="trotter", num_trotter_steps=2)
+    init = np.array([0], np.uint32)
+    one = SampleBasedKrylovDiagonalization(h, cfg, initial_state=init)
+    sk = SampleBasedKrylovDiagonalization(h, cfg, initial_state=init,
+                                          mesh=mesh)
+    r1, i1 = one._evolve_trotter(v[0].contiguous(), v[1].contiguous())
+    r2, i2 = gather_statevector(mesh, *sk._evolve_trotter(
+        *shard_statevector(mesh, v[0].contiguous(), v[1].contiguous())))
+    assert (r1 - r2).abs().max() <= 1e-6 and (i1 - i2).abs().max() <= 1e-6

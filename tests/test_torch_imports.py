@@ -47,7 +47,9 @@ def test_the_walk_sees_the_port():
                  ("utils", "profiling.py"), ("utils", "system_scaler.py"),
                  ("chem", "ccsd.py"), ("ops", "brute_force.py"),
                  ("postprocessing", "projected_hamiltonian.py"),
-                 ("postprocessing", "utils.py")) + tuple(
+                 ("postprocessing", "utils.py"),
+                 ("parallel", "mesh.py"), ("parallel", "sharded_matvec.py"),
+                 ("parallel", "sharded_trotter.py")) + tuple(
                      ("examples", m + ".py") for m in EXAMPLES):
         assert os.path.join("flow_guided_krylov_torch", *part) in names
 

@@ -309,6 +309,11 @@ def test_w2_multiword_de2_matches_host():
 # ---------------------------------------------------------------------------
 
 def test_unported_multiword_molecular_paths_raise():
+    """The pipeline over 4-word determinants still raises (the JAX
+    package's own pipeline fails there); restricted SKQD and the
+    connection table at W = 4 are ported (``tests/test_torch_skqd_w4.py``):
+    SKQD builds over the restricted states, and the table is None, as in
+    the JAX package."""
     from flow_guided_krylov_torch.krylov.skqd import (
         SampleBasedKrylovDiagonalization, build_restricted_subspace)
     from flow_guided_krylov_torch.pipeline import (FlowGuidedKrylovPipeline,
@@ -321,7 +326,6 @@ def test_unported_multiword_molecular_paths_raise():
         FlowGuidedKrylovPipeline(h, PipelineConfig())
     states = build_restricted_subspace(h, hf, cap=50)
     assert len(states) == 50
-    with pytest.raises(NotImplementedError, match="item 2 remainder"):
-        SampleBasedKrylovDiagonalization(h, subspace_states=states)
-    with pytest.raises(NotImplementedError, match="item 2 remainder"):
-        build_connection_table(h)
+    skqd = SampleBasedKrylovDiagonalization(h, subspace_states=states)
+    assert skqd.dim == 50 and skqd._index_of(hf)[0] == 0
+    assert build_connection_table(h) is None

@@ -148,8 +148,19 @@ def test_run_molecular_benchmark_on_cpu():
 def test_unported_options_raise(field, value, tmp_path):
     """Each option that still raises; ``use_local_energy=False`` and
     ``checkpoint_dir`` run alone and raise together (the JAX package's
-    own run fails on the pair: ``tests/test_torch_checkpoint.py``)."""
+    own run fails on the pair: ``tests/test_torch_checkpoint.py``).
+    ``n_devices`` is ported: a Hamiltonian on the CPU gets a mesh of
+    ``cpu`` entries, and what raises is a CUDA mesh wider than the host's
+    cards (``tests/test_torch_parallel.py`` holds the mesh runs)."""
     h = pmol.create_h2_hamiltonian("cpu")
+    if field == "n_devices":
+        from flow_guided_krylov_torch.parallel import make_mesh
+        pipe = ppipe.FlowGuidedKrylovPipeline(
+            h, ppipe.PipelineConfig(verbose=False, n_devices=value))
+        assert pipe.mesh.size == value and pipe.mesh.n_physical == 1
+        with pytest.raises(RuntimeError, match="cards"):
+            make_mesh(torch.cuda.device_count() + value)
+        return
     options = {field: value}
     if field in ("use_local_energy", "checkpoint_dir"):
         options = {"use_local_energy": False,

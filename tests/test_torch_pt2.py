@@ -164,16 +164,19 @@ def test_blocked_equals_one_block():
 
 
 def test_multiword_raises_naming_its_queue():
-    """The multiword dE2 is ported (``tests/test_torch_multiword.py``);
-    what stays of ROADMAP item 2 raises naming its entry: SKQD within a
-    subspace of 4-word determinants (33 orbitals)."""
+    """The multiword dE2 is ported (``tests/test_torch_multiword.py``), and
+    so, since restricted SKQD over 4-word determinants took its device
+    ELL build on key pairs, is SKQD within a subspace of 4-word
+    determinants (33 orbitals): it builds, and its one-state evolve is
+    the identity up to a phase."""
     from flow_guided_krylov_torch.krylov.skqd import \
         SampleBasedKrylovDiagonalization
     h = pmol.create_synthetic_hamiltonian(33, 1, 1, "cpu")
     assert h.pack_words == 4
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        SampleBasedKrylovDiagonalization(
-            h, subspace_states=h.get_hf_state()[None, :])
+    hf = h.get_hf_state()[None, :]
+    s = SampleBasedKrylovDiagonalization(h, subspace_states=hf)
+    assert s.dim == 1
+    assert abs(abs(s.evolve(np.ones(1, complex))[0]) - 1.0) < 1e-12
 
 
 def test_iterative_expansion_pt2_keys_match_jax():
