@@ -115,7 +115,16 @@ statevector):
    ``evolution="ell"`` forced: the device build on (alpha, beta) key
    pairs, the kernel at this width against plain, bound and cuSPARSE,
    the energy below E_var, one ELL evolve against the dense one;
-12c. the multi-device layer (``phase_mesh``) on a logical mesh of four
+12c. the W = 4 projected H and the measurement tools: ``phase_cache_w4``
+   (``IncrementalHamiltonianCache`` over O3's 3,001-determinant round-0
+   basis, extended by 1,000 and 2,001, restricted to a random half and
+   extended again, each step held to the host float64 H, then
+   ``InferenceNQSTrainer`` for 20 epochs beside E_var),
+   ``phase_roofline`` (``tools.roofline_connection --measure`` on the
+   10:7 synthetic space and 32,768 N2/cc-pVDZ determinants) and
+   ``phase_pt2_block`` (``tools.repro_pt2_block --rows 32768 --sweep`` on
+   N2/cc-pVDZ);
+12d. the multi-device layer (``phase_mesh``) on a logical mesh of four
    ``cuda:0`` entries (and ``cuda:0..3`` on a host of four cards): the
    N2/cc-pVDZ restricted evolve at the card's cap as four row blocks,
    bit-equal to the unsharded one, the row-block kernel against plain,
@@ -148,6 +157,10 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+# the H100's peaks and the least time of a byte and flop count (the port's
+# measurement tools share them); fails outside the repo
+from flow_guided_krylov_torch.tools import bound
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FCI_N2_REF = -107.654121          # results/final_benchmark_all.txt:279
@@ -226,16 +239,10 @@ DE2_TOL = 1e-8                    # the device dE2 against the host f64 path
 EIGENSOLVER_TOL = 1e-3            # float32 device Lanczos against f64
 REFINED_TOL = 1e-8                # host-refined against the closed form
 SEEDED_ROWS = 250_000             # a basis above the seeded-eigsh threshold
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
-F32_FLOP_PER_S = 67e12            # float32 outside the tensor cores
-
-
-def bound(nbytes, flops):
-    """Least time in ms for the bytes at the memory's rate and the flops
-    at the float32 rate, and which of the two sets it."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+# the W = 4 projected H of IncrementalHamiltonianCache on the card against
+# the host float64 one: float32 elements, in float32 ulps of the largest
+# |H_ij| (O3's diagonal, ~225 Ha: 8 ulps are 2.1e-4 Ha)
+CACHE_W4_ULPS = 8
 
 
 def _cmd(args):
@@ -3010,6 +3017,148 @@ def ell_w4_rows(name, diag, el_t, tgt_t, build_s, reps=10):
     return out
 
 
+def phase_cache_w4(stage3, device="cuda", rehearsal=False):
+    """The subspace trainers' projected H over 4-word determinants on the
+    card: O3/cc-pVDZ (18e, 39o; C = 104,760), ``phase_multiword``'s
+    round-0 basis (3,001 determinants; ``stage3``).  An
+    ``IncrementalHamiltonianCache`` extends by 1,000, then by 2,001,
+    restricts to a random half and extends by the other half; after each
+    step its float32 ``H_device`` is held to the host float64 H of the
+    same rows (``Hamiltonian.to_sparse``, the native host path; the
+    cache's own ``H`` reads ``matrix_elements``, a full host enumeration
+    of 314 M connections), to ``CACHE_W4_ULPS`` float32 ulps of the
+    largest |H_ij|, and to exact symmetry.  Then ``InferenceNQSTrainer``
+    (a fresh [512]*5 ``DenseNQS``) trains 20 epochs on the basis; its
+    energies are printed beside E_var and held above it.
+    ``rehearsal`` takes the 6-in-34-orbital stand-in of
+    :func:`w4_rehearsal_stage3` (thirds in place of 1,000)."""
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.examples import \
+        large_system_benchmark as lsb
+    from flow_guided_krylov_torch.flows import (IncrementalHamiltonianCache,
+                                                InferenceNQSTrainer)
+    from flow_guided_krylov_torch.models import DenseNQS
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    h = (stage3["factory"](device) if rehearsal
+         else lsb.ozone_ccpvdz_full(device))
+    basis, e_var = stage3["basis"], float(stage3["energy"])
+    n = len(basis)
+    if h.pack_words != 4:
+        raise RuntimeError("cache_w4: not 4-word determinants")
+    t0 = time.perf_counter()
+    ref = h.to_sparse(basis).toarray()
+    res = {"rows": n, "C": h.n_connections, "e_var": e_var,
+           "host_reference_s": time.perf_counter() - t0, "steps": []}
+    first = n // 3 if rehearsal else 1000
+    rng = np.random.default_rng(0)
+    keep = np.sort(rng.choice(n, n // 2, replace=False))
+    steps = [("extend", np.arange(first)), ("extend", np.arange(first, n)),
+             ("restrict", keep), ("extend", np.setdiff1d(np.arange(n), keep))]
+    cache = IncrementalHamiltonianCache(h)
+    rows = np.empty(0, np.int64)              # cache row -> basis row
+    eps = float(np.finfo(np.float32).eps)
+    for kind, arg in steps:
+        t0 = time.perf_counter()
+        if kind == "extend":
+            cache.extend(basis[arg])
+            rows = np.concatenate([rows, arg])
+        else:
+            cache.restrict(arg)
+            rows = rows[arg]
+        sync()
+        step_s = time.perf_counter() - t0
+        if not np.array_equal(cache.basis, basis[rows]):
+            raise RuntimeError(f"cache_w4: {kind} left another basis")
+        got = cache.H_device.double().cpu().numpy()
+        want = ref[np.ix_(rows, rows)]
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        step = {"step": kind, "rows_added_or_kept": int(len(arg)),
+                "cache_rows": len(cache), "seconds": step_s,
+                "max_abs_err": err, "err_ulps_of_max": err / (eps * scale),
+                "fro_err": float(np.linalg.norm(got - want)),
+                "symmetric": bool(np.array_equal(got, got.T))}
+        res["steps"].append(step)
+        print("cache_w4 step: " + json.dumps(step))
+        if step["err_ulps_of_max"] > CACHE_W4_ULPS or not step["symmetric"]:
+            raise RuntimeError(f"cache_w4: H off the host f64 H: {step}")
+    res["device_bytes"] = cache.device_bytes
+    res["chunk_rows"] = cache.chunk_rows
+    res["peak_rows"] = cache.peak_rows
+    del cache
+    hidden = [64, 64] if rehearsal else [512] * 5
+    t0 = time.perf_counter()
+    tr = InferenceNQSTrainer(h, DenseNQS(2 * h.n_orbitals, hidden), basis,
+                             num_epochs=20)
+    sync()
+    build_s = time.perf_counter() - t0
+    e = np.array(tr.train()["energies"])
+    sync()
+    res["inference"] = {"hidden": hidden, "epochs": len(e),
+                        "h_build_s": build_s,
+                        "wall_s": time.perf_counter() - t0,
+                        "first": float(e[0]), "last": float(e[-1]),
+                        "e_var": e_var,
+                        "last_above_e_var_mha": 1e3 * (float(e[-1]) - e_var)}
+    print("cache_w4 inference: " + json.dumps(res["inference"]))
+    # a Rayleigh quotient of the float32 H: at or above its lowest
+    # eigenvalue, within the Frobenius error of E_var
+    floor = e_var - max(s["fro_err"] for s in res["steps"]) - 1e-4
+    if not (np.isfinite(e).all() and e.min() >= floor and e[-1] < e[0]):
+        raise RuntimeError(f"cache_w4: InferenceNQSTrainer {res['inference']}")
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_roofline(device="cuda", rehearsal=False):
+    """``python -m flow_guided_krylov_torch.tools.roofline_connection
+    --measure`` on ``bench``'s 10:7 synthetic space (14,400 x 609) and on
+    32,768 N2/cc-pVDZ (10e, 14o) determinants (C = 2,835): the analytic
+    bound and each ablation's device time, launches and share of the full
+    call.  ``rehearsal`` (no card) runs 256 rows of each."""
+    from flow_guided_krylov_torch.tools import roofline_connection as rc
+    out = {}
+    for name in ("bench_10_7", "n2_ccpvdz"):
+        argv = ["--system", name, "--measure", "--device", device]
+        if rehearsal:
+            argv += ["--rows", "256", "--reps", "1"]
+        r = rc.main(argv)
+        v = r["measured"]["variants"]
+        if device == "cuda" and not (
+                all(x["ms"] and x["launches"] for x in v.values())
+                and v["full"]["ms"] > r["roofline"]["bound_ms"]):
+            raise RuntimeError(f"roofline {name}: {r}")
+        out[name] = r
+    return out
+
+
+def phase_pt2_block(device="cuda", rehearsal=False):
+    """``python -m flow_guided_krylov_torch.tools.repro_pt2_block --rows
+    32768 --sweep`` on N2/cc-pVDZ (10e, 14o): one 92.9 M-element scoring
+    block, then the device branch against the host path at 256 to 32,768
+    source rows and the first size at which the device wins.
+    ``rehearsal`` (no card) runs a 64-row block and a 64- and 128-row
+    sweep."""
+    from flow_guided_krylov_torch.tools import repro_pt2_block as rp
+    argv = ["--system", "n2_ccpvdz", "--sweep", "--device", device]
+    argv += (["--rows", "64", "--sweep-rows", "64,128", "--iters", "1"]
+             if rehearsal else ["--rows", "32768"])
+    r = rp.main(argv)
+    if device == "cuda" and not (
+            r["block"]["ms"] and r["sweep"][0]["host_ms"]
+            and all(x["device_ms"] for x in r["sweep"])):
+        raise RuntimeError(f"pt2 block: {r}")
+    return r
+
+
 def phase_mesh(mesh_input, n2_fci, device="cuda", rehearsal=False):
     """The multi-device layer on a logical mesh of four ``cuda:0``
     entries, and on ``cuda:0..3`` when the host has four cards: the
@@ -3534,6 +3683,9 @@ def main():
     eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
     multiword = phase_multiword()
     w4 = phase_skqd_w4(multiword["o3_stage3"])
+    phase_cache_w4(multiword["o3_stage3"])
+    phase_roofline()
+    phase_pt2_block()
     mesh = phase_mesh(restricted["mesh_input"], n2["fci"])
     del restricted["mesh_input"]
     phase_entry_points()

@@ -13,3 +13,15 @@ enabled, as the JAX package's ``Precision.HIGHEST`` rule requires.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["FlowGuidedKrylovPipeline", "PipelineConfig"]
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: ``import flow_guided_krylov_torch``
+    # stays light
+    if name in ("FlowGuidedKrylovPipeline", "PipelineConfig",
+                "run_molecular_benchmark"):
+        from . import pipeline
+        return getattr(pipeline, name)
+    raise AttributeError(name)

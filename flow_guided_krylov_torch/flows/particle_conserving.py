@@ -140,6 +140,10 @@ class ParticleConservingFlow(nn.Module):
                                self.n_alpha)
                 + _topk_log_prob(self._beta_logits(alpha), beta, self.n_beta))
 
+    def estimate_discrete_prob(self, configs: torch.Tensor) -> torch.Tensor:
+        """p(x) = exp(log p(x))."""
+        return torch.exp(self.log_prob(configs))
+
 
 class SzConservingFlow(nn.Module):
     """Exact-magnetization spin sampler: Gumbel top-k over site logits.

@@ -42,7 +42,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..hamiltonians.base import _KeyIndex
 from ..ops.bits import pack_np, to_device, unpack_device
+from ..utils.memory import MemoryBudget
 from .physics_guided_training import OptaxAdamW
 
 __all__ = ["TrainingConfig", "IncrementalHamiltonianCache",
@@ -76,18 +78,17 @@ class IncrementalHamiltonianCache:
     ``basis`` is the host (M, W) uint32 view, ``words`` the device (M, W)
     int64 rows, ``H_device`` the (M, M) device block (a view into a
     buffer of ``capacity`` rows, grown in place), ``H`` the host float64
-    matrix (computed on first read after a change).  Up to two words a
-    row (32 orbitals)."""
+    matrix (computed on first read after a change).  A connection's row
+    is found through :class:`_KeyIndex`: one int64 key a row up to 32
+    orbitals, an (alpha, beta) int64 pair past them (four words a row)."""
 
     def __init__(self, hamiltonian, capacity: Optional[int] = None):
-        if hamiltonian.pack_words > 2:
-            raise NotImplementedError(
-                "IncrementalHamiltonianCache keys one int64 a row (up to 32 "
-                "orbitals); multiword rows are ROADMAP.md, Queue 1, item 2 "
-                "remainder")
         self.h = hamiltonian
         self.device = hamiltonian.device
         self.capacity = capacity
+        # new determinants whose connections are live at once
+        self.chunk_rows = MemoryBudget.for_device(
+            self.device).build_chunk_rows(hamiltonian.n_connections)
         self.basis: Optional[np.ndarray] = None     # (M, W) uint32
         self._H: Optional[torch.Tensor] = None      # (cap, cap) float32
         self._words: Optional[torch.Tensor] = None  # (cap, W) int64
@@ -144,28 +145,27 @@ class IncrementalHamiltonianCache:
     def _fill_new(self, m: int, n: int) -> None:
         """Rows and columns m..n of H: column j is <basis|H|new_j> from
         new_j's connections (each a distinct determinant, so every write
-        lands once); the new-new block is symmetrized, as the JAX cache
-        symmetrizes its diagonal block."""
-        h, k = self.h, n - m
-        keys = h.keys_device(self._words[:n])
-        sorted_keys, order = torch.sort(keys)
-        new = self._words[m:n]
-        conn, elems = h.connections_device(new)
-        ck = h.keys_device(conn)                          # (k, C)
-        pos = torch.searchsorted(sorted_keys, ck).clamp_(max=n - 1)
-        hit = sorted_keys[pos] == ck
-        rows = torch.where(hit, order[pos], n)            # misses: spare row
-        cols = torch.arange(k, device=self.device)[:, None].expand_as(rows)
-        block = torch.zeros((n + 1, k), dtype=torch.float32,
-                            device=self.device)
-        block[rows, cols] = elems.float()      # rows: targets, cols: new_j
-        block = block[:n]
-        idx = torch.arange(k, device=self.device)
-        block[m + idx, idx] += h.diagonal_device(new)
-        H = self._H
-        H[:m, m:n] = block[:m]
-        H[m:n, :m] = block[:m].T
-        nb = block[m:]
+        lands once), ``chunk_rows`` new determinants at a time; the
+        new-new block is symmetrized, as the JAX cache symmetrizes its
+        diagonal block."""
+        h, H = self.h, self._H
+        index = _KeyIndex(h.keys_device(self._words[:n]))
+        for a in range(m, n, self.chunk_rows):
+            b = min(n, a + self.chunk_rows)
+            new = self._words[a:b]
+            conn, elems = h.connections_device(new)
+            row, hit = index.find(h.keys_device(conn))
+            del conn
+            rows = torch.where(hit, row, n)           # misses: spare row
+            idx = torch.arange(b - a, device=self.device)
+            block = torch.zeros((n + 1, b - a), dtype=torch.float32,
+                                device=self.device)
+            # rows: targets, columns: new_j
+            block[rows, idx[:, None].expand_as(rows)] = elems.float()
+            block[a + idx, idx] += h.diagonal_device(new)
+            H[:n, a:b] = block[:n]
+        H[m:n, :m] = H[:m, m:n].T
+        nb = H[m:n, m:n]
         H[m:n, m:n] = 0.5 * (nb + nb.T)
 
     def extend(self, new_dets: np.ndarray) -> None:
@@ -239,6 +239,12 @@ class FlowNQSTrainer:
 
     def __init__(self, hamiltonian, flow, nqs,
                  config: Optional[TrainingConfig] = None):
+        if hamiltonian.pack_words > 2:
+            raise NotImplementedError(
+                "FlowNQSTrainer dedups its basis on uint64 keys, as the JAX "
+                "trainer does, which fails on the 128-bit keys of 4-word "
+                "rows (more than 32 orbitals): ROADMAP.md, Queue 1, item 2 "
+                "remainder (c)")
         self.h = hamiltonian
         self.config = c = config or TrainingConfig()
         self.device = hamiltonian.device

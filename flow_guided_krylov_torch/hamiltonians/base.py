@@ -36,6 +36,80 @@ def lex_order(keys: torch.Tensor) -> torch.Tensor:
     return order[torch.sort(keys[order, 0], stable=True).indices]
 
 
+class _PairKeys:
+    """Membership search over a set of (alpha, beta) int64 key pairs with
+    one int64 ``searchsorted``: the set's distinct alpha keys and distinct
+    beta keys, sorted, rank each channel, and a pair becomes
+    ``rank_a * n_beta + rank_b``.  The composite orders the set as the
+    lexicographic pair order does, and a pair whose alpha or beta key the
+    set lacks is no member."""
+
+    def __init__(self, keys: torch.Tensor):
+        self.alpha = torch.unique(keys[:, 0])
+        self.beta = torch.unique(keys[:, 1])
+        self.own = self.search_key(keys)[0]
+
+    def on(self, device) -> "_PairKeys":
+        """The same search with its channel keys on ``device``."""
+        from ..parallel.mesh import to
+        out = copy.copy(self)
+        out.alpha, out.beta = to(self.alpha, device), to(self.beta, device)
+        return out
+
+    @staticmethod
+    def _rank(values: torch.Tensor, keys: torch.Tensor):
+        pos = torch.searchsorted(values, keys).clamp_(max=len(values) - 1)
+        return pos, values[pos] == keys
+
+    def search_key(self, keys: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(..., 2) key pairs -> ((...) composite keys, (...) True where
+        both channels' keys occur in the set)."""
+        ra, hit_a = self._rank(self.alpha, keys[..., 0].contiguous())
+        rb, hit_b = self._rank(self.beta, keys[..., 1].contiguous())
+        return ra * len(self.beta) + rb, hit_a & hit_b
+
+
+class _KeyIndex:
+    """The rows of a set of device keys (:meth:`Hamiltonian.keys_device`:
+    one int64 a row up to two words, an (alpha, beta) pair at four) by one
+    int64 ``searchsorted`` over the sorted keys; pairs search as their
+    :class:`_PairKeys` composite.  ``index_dtype`` is the dtype of the rows
+    :meth:`find` returns."""
+
+    def __init__(self, keys: torch.Tensor,
+                 index_dtype: torch.dtype = torch.int64):
+        self.pairs = _PairKeys(keys) if keys.dim() == 2 else None
+        if self.pairs is not None:
+            keys = self.pairs.own
+        self.sorted, order = torch.sort(keys)
+        self.order = order.to(index_dtype)
+
+    def on(self, device) -> "_KeyIndex":
+        """The same index with its tensors on ``device``."""
+        from ..parallel.mesh import to
+        out = copy.copy(self)
+        out.sorted, out.order = to(self.sorted, device), to(self.order,
+                                                            device)
+        if self.pairs is not None:
+            out.pairs = self.pairs.on(device)
+        return out
+
+    def find(self, keys: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device keys of any leading shape -> (their rows in the set,
+        True where a key is in the set); a miss's row is arbitrary."""
+        member = None
+        if self.pairs is not None:
+            keys, member = self.pairs.search_key(keys)
+        pos = torch.searchsorted(self.sorted, keys).clamp_(
+            max=len(self.sorted) - 1)
+        hit = self.sorted[pos] == keys
+        if member is not None:
+            hit &= member
+        return self.order[pos], hit
+
+
 class Hamiltonian(ABC):
     """Abstract Hamiltonian over packed-bitstring configurations.
 

@@ -1,8 +1,8 @@
 """Selected-CI expansion (stage 3), SKQD (stage 4) and circuit basis
 sampling."""
 
-from .basis_sampler import (CircuitSamplerConfig, KrylovBasisSampler,
-                            create_circuit_sampler)
+from .basis_sampler import (CircuitSamplerConfig, CUDAQConfig,
+                            KrylovBasisSampler, create_circuit_sampler)
 from .residual_expansion import (ResidualBasedExpander,
                                  ResidualExpansionConfig, SelectedCIExpander,
                                  iterative_residual_expansion)
@@ -16,5 +16,6 @@ __all__ = [
     "SKQDConfig", "SampleBasedKrylovDiagonalization", "FlowGuidedSKQD",
     "EvolutionBudgetError", "lanczos_expm", "lanczos_expm_ell",
     "supported_evolution_dim",
-    "CircuitSamplerConfig", "KrylovBasisSampler", "create_circuit_sampler",
+    "CircuitSamplerConfig", "CUDAQConfig", "KrylovBasisSampler",
+    "create_circuit_sampler",
 ]

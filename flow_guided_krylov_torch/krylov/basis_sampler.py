@@ -19,7 +19,7 @@ from ..hamiltonians.spin import extract_coeffs_and_paulis
 from ..ops.x_sweep import _pauli_masks, _pauli_rotation_pair
 from .skqd import _sample_idx_cdf
 
-__all__ = ["CircuitSamplerConfig", "KrylovBasisSampler",
+__all__ = ["CircuitSamplerConfig", "CUDAQConfig", "KrylovBasisSampler",
            "create_circuit_sampler"]
 
 
@@ -31,6 +31,10 @@ class CircuitSamplerConfig:
     time_step: float = 0.1
     initial_state: str = "neel"      # 'neel' | 'zeros' | 'ones'
     seed: int = 0
+
+
+# the JAX package's name for it, from the reference
+CUDAQConfig = CircuitSamplerConfig
 
 
 class KrylovBasisSampler:

@@ -36,7 +36,6 @@ does not fit, raises.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from math import comb
 from typing import Dict, List, Optional, Tuple
@@ -46,7 +45,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..hamiltonians.base import Hamiltonian
+from ..hamiltonians.base import Hamiltonian, _KeyIndex
 from ..hamiltonians.spin import extract_coeffs_and_paulis
 from ..ops.bits import _parity32, to_device
 from ..ops.ell_spmv import ell_spmv
@@ -337,40 +336,6 @@ def _diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
     return re * hr - im * hi, re * hi + im * hr
 
 
-class _PairKeys:
-    """Membership search over a set of (alpha, beta) int64 key pairs with
-    one int64 ``searchsorted``: the set's distinct alpha keys and distinct
-    beta keys, sorted, rank each channel, and a pair becomes
-    ``rank_a * n_beta + rank_b``.  The composite orders the set as the
-    lexicographic pair order does, and a pair whose alpha or beta key the
-    set lacks is no member."""
-
-    def __init__(self, keys: torch.Tensor):
-        self.alpha = torch.unique(keys[:, 0])
-        self.beta = torch.unique(keys[:, 1])
-        self.own = self.search_key(keys)[0]
-
-    def on(self, device) -> "_PairKeys":
-        """The same search with its channel keys on ``device``."""
-        from ..parallel.mesh import to
-        out = copy.copy(self)
-        out.alpha, out.beta = to(self.alpha, device), to(self.beta, device)
-        return out
-
-    @staticmethod
-    def _rank(values: torch.Tensor, keys: torch.Tensor):
-        pos = torch.searchsorted(values, keys).clamp_(max=len(values) - 1)
-        return pos, values[pos] == keys
-
-    def search_key(self, keys: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(..., 2) key pairs -> ((...) composite keys, (...) True where
-        both channels' keys occur in the set)."""
-        ra, hit_a = self._rank(self.alpha, keys[..., 0].contiguous())
-        rb, hit_b = self._rank(self.beta, keys[..., 1].contiguous())
-        return ra * len(self.beta) + rb, hit_a & hit_b
-
-
 # ---------------------------------------------------------------------------
 # SKQD
 # ---------------------------------------------------------------------------
@@ -657,7 +622,8 @@ class SampleBasedKrylovDiagonalization:
         molecular subspace.
 
         4-word determinants key as (alpha, beta) int64 pairs
-        (:class:`_PairKeys`): each channel's key is ranked among the set's
+        (``hamiltonians.base._KeyIndex`` over ``_PairKeys``): each
+        channel's key is ranked among the set's
         distinct keys of that channel, and the pair searches as the one
         int64 ``rank_a * n_beta + rank_b``, which orders the set as the
         lexicographic pair order does.
@@ -682,13 +648,8 @@ class SampleBasedKrylovDiagonalization:
         dev = self.device
         if chunk is None:
             chunk = MemoryBudget.for_device(dev).build_chunk_rows(C)
-        keys = self.h.keys_device(to_device(states, dev))
-        pairs = _PairKeys(keys) if keys.dim() == 2 else None
-        if pairs is not None:
-            keys = pairs.own
-        sorted_keys, order = torch.sort(keys)
-        del keys
-        order = order.to(torch.int32)
+        index = _KeyIndex(self.h.keys_device(to_device(states, dev)),
+                          torch.int32)
         if mesh is None:
             spans, pad = [(0, dim, dev)], 0
         else:
@@ -696,14 +657,12 @@ class SampleBasedKrylovDiagonalization:
             _, pad = split_rows(mesh, dim)
             spans = [(row0, rows, d) for (row0, rows), d
                      in zip(blocks_of(mesh, dim), mesh.devices)]
-        from ..parallel.mesh import to
         blocks = []
         for row0, rows, bdev in spans:
             # the block's rows are worked on its own device: the
             # Hamiltonian's replica there and a copy of the search keys
             h = self.h.on(bdev)
-            skeys, sorder = to(sorted_keys, bdev), to(order, bdev)
-            bpairs = pairs if pairs is None else pairs.on(bdev)
+            bindex = index.on(bdev)
             diag = torch.zeros(rows, dtype=torch.float32, device=bdev)
             elems = torch.zeros((C, rows), dtype=torch.float32, device=bdev)
             tgt = torch.zeros((C, rows), dtype=torch.int32, device=bdev)
@@ -712,16 +671,9 @@ class SampleBasedKrylovDiagonalization:
                                                   start + chunk)], bdev)
                 a, b = start - row0, start - row0 + part.shape[0]
                 conn, el = h.connections_device(part)   # (M, C, W), (M, C)
-                keys = h.keys_device(conn)
+                row, hit = bindex.find(h.keys_device(conn))
                 del conn
-                if bpairs is not None:
-                    keys, member = bpairs.search_key(keys)
-                pos = torch.searchsorted(skeys, keys).clamp_(max=dim - 1)
-                hit = skeys[pos] == keys
-                if bpairs is not None:
-                    hit &= member
-                del keys
-                tgt[:, a:b] = torch.where(hit, sorder[pos], 0).T
+                tgt[:, a:b] = torch.where(hit, row, 0).T
                 elems[:, a:b] = torch.where(hit, el, 0.0).T
                 diag[a:b] = h.diagonal_device(part)
             blocks.append((row0, diag, elems, tgt))

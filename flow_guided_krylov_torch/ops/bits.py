@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "pack_np", "unpack_np", "keys_np", "parity_between_np",
-    "to_device", "to_host", "occupancy", "unpack_device", "keys_device",
+    "pack_np", "unpack_np", "keys_np", "from_keys_np", "parity_between_np",
+    "to_device", "to_host", "occupancy", "pack_device", "unpack_device",
+    "keys_device",
     "unkey_device", "parity_between",
     "pack2_np", "occupancy2_np", "flip_orbital2_np", "parity_between2_np",
     "join2", "split2", "occupancy2", "flip_orbital2", "parity_between2",
@@ -65,6 +66,15 @@ def keys_np(packed: np.ndarray) -> np.ndarray:
     """(B, 2) uint32 -> (B,) uint64 unique key (alpha << 32 | beta)."""
     packed = np.asarray(packed, dtype=np.uint64)
     return (packed[..., 0] << np.uint64(32)) | packed[..., 1]
+
+
+def from_keys_np(keys: np.ndarray) -> np.ndarray:
+    """(B,) uint64 keys -> (B, 2) uint32 [alpha, beta] (inverse of
+    :func:`keys_np`)."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    a = (keys >> np.uint64(32)).astype(np.uint32)
+    b = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return np.stack([a, b], axis=-1)
 
 
 # (1 << k) - 1 for k = 0..32, as uint32 (index 32 = all-ones)
@@ -113,8 +123,19 @@ def occupancy(bits: torch.Tensor, n_orb: int) -> torch.Tensor:
     return (bits.unsqueeze(-1) >> shifts) & 1
 
 
+def pack_device(occ: torch.Tensor) -> torch.Tensor:
+    """(..., n_orb) 0/1 -> (...) int64 word (inverse of :func:`occupancy`,
+    n_orb <= 32)."""
+    shifts = torch.arange(occ.shape[-1], device=occ.device)
+    return (occ.to(torch.int64) << shifts).sum(-1)
+
+
 def unpack_device(packed: torch.Tensor, n_orb: int) -> torch.Tensor:
-    """(..., 2) int64 words -> (..., 2*n_orb) float32 occupations."""
+    """(..., 2) int64 words, or (..., 4) [hi, lo] words a channel past 32
+    orbitals -> (..., 2*n_orb) float32 occupations."""
+    if packed.shape[-1] == 4:
+        return torch.cat([occupancy2(packed[..., 0:2], n_orb),
+                          occupancy2(packed[..., 2:4], n_orb)], -1).float()
     return torch.cat([occupancy(packed[..., 0], n_orb),
                       occupancy(packed[..., 1], n_orb)], -1).float()
 

@@ -30,7 +30,7 @@ import numpy as np
 
 from ..utils.build import build_library
 
-__all__ = ["conn_hits_native"]
+__all__ = ["conn_hits_native", "native_available"]
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native", "conn_hits.cpp")
@@ -64,6 +64,12 @@ def _load() -> Optional[ctypes.CDLL]:
     ]
     lib.fgk_conn_hits.restype = ctypes.c_int64
     return lib
+
+
+def native_available() -> bool:
+    """Whether the host hit search runs natively (a failed build
+    raises)."""
+    return _load() is not None
 
 
 def conn_hits_native(h, new: np.ndarray, sorted_keys: np.ndarray

@@ -64,6 +64,13 @@ class SlaterTables:
                 + self.spec_a.n_double + self.spec_b.n_double
                 + self.ab_grid.shape[0])
 
+    def section_sizes(self) -> Tuple[int, int, int, int, int]:
+        """Connections by section, in the connection order: alpha and
+        beta singles, alpha and beta doubles, alpha-beta doubles."""
+        return (self.spec_a.n_single, self.spec_b.n_single,
+                self.spec_a.n_double, self.spec_b.n_double,
+                self.ab_grid.shape[0])
+
 
 def build_tables(h1: np.ndarray, h2: np.ndarray, e_nuc: float,
                  n_alpha: int, n_beta: int) -> SlaterTables:
@@ -176,12 +183,15 @@ CHUNK_ENTRIES = 1 << 24
 
 
 def _connection_sections(tables: SlaterTables, device, parity,
-                         dtype: torch.dtype = torch.float32):
+                         dtype: torch.dtype = torch.float32,
+                         h2_gather: Optional[Callable] = None):
     """f(pa, pb) over (B, 1) int64 channels of up to 64 bits ->
     [(alpha, beta, elems), ...] per section in the order [singles_a,
     singles_b, doubles_aa, doubles_bb, doubles_ab]: (B, c) target channels
     (the unchanged channel as (B, 1)) and (B, c) elements in ``dtype``.
-    ``parity`` is the JW sign of the channel width."""
+    ``parity`` is the JW sign of the channel width; ``h2_gather(h2f,
+    index)`` reads the flat (pq|rs) (``h2f[index]`` when None; the
+    roofline tool swaps it out)."""
     n = tables.n_orb
     ka, kb = tables.n_alpha, tables.n_beta
 
@@ -200,7 +210,8 @@ def _connection_sections(tables: SlaterTables, device, parity,
     orbitals = torch.arange(n, device=device)
 
     def h2g(p, q, r, s):
-        return h2f[((p * n + q) * n + r) * n + s]
+        index = ((p * n + q) * n + r) * n + s
+        return h2f[index] if h2_gather is None else h2_gather(h2f, index)
 
     def flip(bits, p, q):
         return bits ^ (1 << p) ^ (1 << q)

@@ -47,10 +47,16 @@ class DeviceConnectionTable:
     def n_connections(self) -> int:
         return self.target_idx.shape[1]
 
+    def key_of(self, packed: torch.Tensor) -> torch.Tensor:
+        """(..., 2) int64 words -> (...) int64 key that :meth:`lookup`
+        searches, in the (alpha, beta) lexicographic order of the JAX
+        table's uint32 key (which stops at 16 orbitals)."""
+        return keys_device(packed)
+
     def lookup(self, packed: torch.Tensor) -> torch.Tensor:
         """(..., 2) int64 words -> (...) int64 indices into the
         enumerated basis (members of the space only)."""
-        pos = torch.searchsorted(self._keys_sorted, keys_device(packed))
+        pos = torch.searchsorted(self._keys_sorted, self.key_of(packed))
         return self._order[pos.clamp_(0, self.n_configs - 1)]
 
     def local_energy_inputs(self, packed: torch.Tensor

@@ -4,7 +4,17 @@ cache directory, and the cache files readable by both.
 
 Bit equality needs both packages on the same ERI engine (the native C++
 one, or the NumPy one): the test asserts that first, so that a failed
-build on one side cannot pass unseen."""
+build on one side cannot pass unseen.  The JAX loader compiles in place
+and remembers a failed load for the process's life, so a test worker
+that loaded its library while another worker was writing it would run
+the NumPy engine to the end; the module fixture :func:`_jax_engine`
+rebuilds that library race-free for such a worker before the comparison
+(the port's loader builds under a temporary name)."""
+
+import fcntl
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -22,6 +32,30 @@ GEOMETRIES = {
             ("H", (0.96 * np.cos(_ANG), 0.96 * np.sin(_ANG), 0.0))],
 }
 FIELDS = ("h1e", "h2e", "nuclear_repulsion", "n_alpha", "n_beta")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_engine():
+    """If the JAX loader holds no library while g++ can build one, build
+    ``native/integrals.cpp`` as that loader does, under a file lock, to a
+    temporary name renamed into the loader's cache path, and let the
+    loader load the finished file afresh."""
+    gxx = shutil.which("g++")
+    if jax_native.native_available() or gxx is None \
+            or not os.path.exists(jax_native._SRC):
+        return
+    out = jax_native._LIB_CANDIDATES[-1]
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run([gxx, "-std=c++17", "-O3", "-march=native",
+                        "-fopenmp", "-shared", "-fPIC", jax_native._SRC,
+                        "-o", tmp], check=True, capture_output=True,
+                       timeout=300)
+        os.replace(tmp, out)
+        jax_native._tried, jax_native._lib = False, None
+        jax_native._load()
 
 
 def test_both_packages_use_the_same_eri_engine():

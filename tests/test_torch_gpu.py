@@ -887,3 +887,65 @@ def test_sharded_trotter_block_tables_on_card(card):
     r2, i2 = gather_statevector(mesh, *sk._evolve_trotter(
         *shard_statevector(mesh, v[0].contiguous(), v[1].contiguous())))
     assert (r1 - r2).abs().max() <= 1e-6 and (i1 - i2).abs().max() <= 1e-6
+
+
+def test_w4_cache_on_card_matches_cpu(card):
+    """``IncrementalHamiltonianCache`` over 4-word determinants (a
+    2-orbital pair scattered over orbitals 31 and 33 of 34, so both words
+    of each channel carry bits) through extend, restrict and extend: the
+    card's float32 H against the CPU's, to 1e-6 of the largest |H_ij|,
+    and ``InferenceNQSTrainer``'s H the same."""
+    from flow_guided_krylov_torch.chem.scf import MolecularIntegrals
+    from flow_guided_krylov_torch.flows import (IncrementalHamiltonianCache,
+                                                InferenceNQSTrainer)
+    from flow_guided_krylov_torch.hamiltonians import MolecularHamiltonian
+    from flow_guided_krylov_torch.models import DenseNQS
+    from flow_guided_krylov_torch.tools import random_determinants
+    rng = np.random.default_rng(5)
+    n, act = 34, np.array([0, 1, 2, 31, 32, 33])
+    h1 = np.zeros((n, n))
+    a = rng.normal(size=(6, 6))
+    h1[np.ix_(act, act)] = 0.5 * (a + a.T)
+    g = rng.normal(size=(6,) * 4) * 0.1
+    g = g + g.transpose(1, 0, 2, 3)
+    g = g + g.transpose(0, 1, 3, 2)
+    g = g + g.transpose(2, 3, 0, 1)
+    h2 = np.zeros((n,) * 4)
+    h2[np.ix_(act, act, act, act)] = g / 8
+    ints = MolecularIntegrals(h1e=h1, h2e=h2, nuclear_repulsion=0.5,
+                              n_electrons=4, n_orbitals=n, n_alpha=2,
+                              n_beta=2)
+    hc, hg = (MolecularHamiltonian(ints, d) for d in ("cpu", "cuda"))
+    basis = random_determinants(hc, 120, seed=3)
+    caches = [IncrementalHamiltonianCache(h) for h in (hc, hg)]
+    for c in caches:
+        c.extend(basis[:50])
+        c.extend(basis[50:])
+        c.restrict(np.arange(0, 120, 2))
+        c.extend(basis[1::2])
+    want = caches[0].H_device.double().numpy()
+    got = caches[1].H_device.double().cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    tr = InferenceNQSTrainer(hg, DenseNQS(2 * n, (16,)), basis,
+                             num_epochs=3)
+    ref = InferenceNQSTrainer(hc, DenseNQS(2 * n, (16,)), basis,
+                              num_epochs=3)
+    assert (tr.H.double().cpu() - ref.H.double()).abs().max() \
+        <= 1e-6 * ref.H.abs().max()
+    assert np.isfinite(tr.train()["energies"]).all()
+
+
+def test_tools_time_on_card(card):
+    """The tools' timings are taken on the card: the roofline's variants
+    and a PT2 block at small sizes carry a time, launches and a card
+    name."""
+    from flow_guided_krylov_torch.tools import card as card_name
+    from flow_guided_krylov_torch.tools import repro_pt2_block as rp
+    from flow_guided_krylov_torch.tools import roofline_connection as rc
+    assert "," in card_name(card)
+    h = create_lih_hamiltonian("cuda")
+    m = rc.measure(h, h.enumerate_basis(), card, reps=2)
+    assert all(v["ms"] > 0 and v["launches"] > 0
+               for v in m["variants"].values())
+    r = rp.run_block(h, 64, iters=2)
+    assert r["ms"] > 0 and r["first_call_s"] > 0

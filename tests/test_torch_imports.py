@@ -50,20 +50,23 @@ def test_the_walk_sees_the_port():
                  ("postprocessing", "utils.py"),
                  ("parallel", "mesh.py"), ("parallel", "sharded_matvec.py"),
                  ("parallel", "sharded_trotter.py")) + tuple(
-                     ("examples", m + ".py") for m in EXAMPLES):
+                     ("examples", m + ".py") for m in EXAMPLES) + tuple(
+                     ("tools", m + ".py") for m in ("__init__",) + TOOLS):
         assert os.path.join("flow_guided_krylov_torch", *part) in names
 
 
 EXAMPLES = ("__init__", "benchmark", "bench", "large_system_benchmark",
             "moderate_system_benchmark", "skqd_lattice_validation",
             "skqd_validation", "skqd_necessity_test", "graft_entry")
+TOOLS = ("roofline_connection", "repro_pt2_block", "sharded_scaling",
+         "ccsd_bar")
 
 
 @pytest.fixture(scope="module")
 def imported_without_jax():
-    """Import every CLI module in one process that cannot import JAX or
-    the JAX package (a meta-path finder refuses them), as on the card's
-    machine: {module: error or None}."""
+    """Import every CLI module (the examples and the tools) in one
+    process that cannot import JAX or the JAX package (a meta-path finder
+    refuses them), as on the card's machine: {module: error or None}."""
     import subprocess
     import sys
     code = (
@@ -77,13 +80,15 @@ def imported_without_jax():
         "for name in sys.argv[1:]:\n"
         "    try:\n"
         "        m = importlib.import_module(\n"
-        "            'flow_guided_krylov_torch.examples.' + name)\n"
+        "            'flow_guided_krylov_torch.' + name)\n"
         "        out[name] = None if callable(getattr(m, 'main', None)) \\\n"
         "            else 'no main'\n"
         "    except Exception as exc:\n"
         "        out[name] = repr(exc)\n"
         "print(json.dumps(out))\n")
-    out = subprocess.run([sys.executable, "-c", code, *EXAMPLES[1:]],
+    names = ["examples." + m for m in EXAMPLES[1:]] + [
+        "tools." + m for m in TOOLS]
+    out = subprocess.run([sys.executable, "-c", code, *names],
                          capture_output=True, text=True, timeout=120,
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -93,4 +98,11 @@ def imported_without_jax():
 
 @pytest.mark.parametrize("name", EXAMPLES[1:])
 def test_entry_points_import_without_jax(name, imported_without_jax):
-    assert imported_without_jax[name] is None, imported_without_jax[name]
+    got = imported_without_jax["examples." + name]
+    assert got is None, got
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tools_import_without_jax(name, imported_without_jax):
+    got = imported_without_jax["tools." + name]
+    assert got is None, got

@@ -35,6 +35,8 @@ CANCEL_RTOL = 1e-6
 # and a coupling below this squares to a subnormal float32 score, which a
 # device may flush to 0 (symmetry-forbidden sources, coefficients ~1e-17)
 SQUARE_UNDERFLOW = 1.1e-19
+# couplings below this share of the largest are rounding noise to a count
+NOISE_FLOOR = 1e-6
 CASES = {"lih": (2, 8, 20), "h2o": (3, 20, 80)}
 
 
@@ -192,9 +194,22 @@ def test_iterative_expansion_pt2_keys_match_jax():
     assert set(out) == set(want)
     np.testing.assert_array_equal(out["basis"], want["basis"])
     assert abs(out["pt2_de2"] - want["pt2_de2"]) < DEVICE_TOL
-    assert out["pt2_exact"] and abs(
-        out["pt2_n_external"] - want["pt2_n_external"]) \
-        <= 0.25 * out["pt2_n_external"]
+    # the external counts, through couplings that no float32 sum can
+    # cancel to 0.0: every key above the noise floor (a millionth of the
+    # largest coupling, or its own terms' float32 resolution) is counted by
+    # both packages, and neither counts a key no connection reaches
+    basis = out["basis"]
+    keys, coupling, scale = _host_couplings(
+        h, basis, h.exact_ground_state(basis, k=1)[1][:, 0])
+    floor = np.maximum(np.maximum(NOISE_FLOOR * np.abs(coupling).max(),
+                                  CANCEL_RTOL * scale), SQUARE_UNDERFLOW)
+    significant = int((np.abs(coupling) > floor).sum())
+    conn, _ = h.connections_np(basis)
+    reached = np.unique(h.keys(conn.reshape(-1, conn.shape[-1])))
+    reached = int((~np.isin(reached, h.keys(basis))).sum())
+    assert out["pt2_exact"] and want["pt2_exact"]
+    assert 0 < significant <= out["pt2_n_external"] <= reached
+    assert significant <= want["pt2_n_external"] <= reached
     assert abs(out["pt2_corrected_energy"]
                - (out["energy"] + out["pt2_de2"])) < 1e-12
     assert [r["basis_size"] for r in out["pt2_checkpoints"]] == \

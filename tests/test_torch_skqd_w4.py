@@ -28,7 +28,7 @@ import torch
 
 from flow_guided_krylov_tpu.krylov import skqd as jsk
 from flow_guided_krylov_tpu.utils import connection_table as jct
-from flow_guided_krylov_torch.hamiltonians.base import lex_order
+from flow_guided_krylov_torch.hamiltonians.base import _KeyIndex, lex_order
 from flow_guided_krylov_torch.krylov import skqd as psk
 from flow_guided_krylov_torch.utils import connection_table as pct
 
@@ -93,8 +93,9 @@ def test_w4_device_ell_targets_match_jax_host_build(system):
 
 
 def test_pair_search_equals_lexicographic_search():
-    """The composite-rank search finds what a lexicographic two-key search
-    finds, bit for bit, misses included."""
+    """The composite-rank search (``_KeyIndex`` over ``_PairKeys``) finds
+    what a lexicographic two-key search finds, bit for bit, misses
+    included."""
     rng = np.random.default_rng(1)
     a = rng.integers(-5, 5, 400) * (1 << 40)
     b = rng.integers(-(1 << 62), 1 << 62, 400)
@@ -102,13 +103,9 @@ def test_pair_search_equals_lexicographic_search():
     own = own[torch.randperm(len(own), generator=torch.Generator()
                              .manual_seed(0))]
     query = torch.as_tensor(np.stack([a, b], -1))
-    pairs = psk._PairKeys(own)
-    comp_own = pairs.own
-    sorted_c, order = torch.sort(comp_own)
-    comp_q, member = pairs.search_key(query)
-    pos = torch.searchsorted(sorted_c, comp_q).clamp_(max=len(own) - 1)
-    hit = member & (sorted_c[pos] == comp_q)
-    got = torch.where(hit, order[pos], -1)
+    index = _KeyIndex(own)
+    row, hit = index.find(query)
+    got = torch.where(hit, row, -1)
     # lexicographic: the own pairs in lex order, each query searched by
     # its (a, b) tuple
     lex = lex_order(own)
@@ -116,7 +113,7 @@ def test_pair_search_equals_lexicographic_search():
     want = torch.tensor([table.get(tuple(q.tolist()), -1) for q in query])
     assert torch.equal(got, want)
     # the composite orders the pairs as the lexicographic order does
-    assert torch.equal(order, lex)
+    assert torch.equal(index.order, lex)
 
 
 def test_w4_evolve_matches_jax_dense(system):
