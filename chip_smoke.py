@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (flow_guided_krylov_torch) on one CUDA card.
 
-    python3 chip_smoke.py               # every phase, one card
-    python3 chip_smoke.py --only mesh   # the build and phase_mesh alone
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --only mesh       # the build and phase_mesh alone
+    python3 chip_smoke.py --only headline   # the build and phase_headline
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (one ``nvcc`` per source, started together), holds each against
@@ -136,7 +137,14 @@ statevector):
    ``benchmark --molecule all --pt2-only`` (seven molecules, each beside
    the JAX record's error), the moderate CLI on CO, ``skqd_validation``'s
    isolated experiment and the necessity test on LiH, the lattice CLI's
-   Pauli-word oracle at 12 sites and ``graft_entry.entry()``'s step.
+   Pauli-word oracle at 12 sites and ``graft_entry.entry()``'s step;
+14. the published seven-molecule table (``phase_headline``):
+   ``benchmark --molecule m --json`` for H2, LiH, H2O, BeH2, NH3, N2 and
+   CH4 through all four stages at the record's settings (the tiered
+   ``PipelineConfig()``, N2 and CH4 up to 600 epochs), each checked
+   against FCI and stage 4's skip rule and printed beside the JAX record;
+   then the moderate CLI at the FAST preset on H2S and HCN against FCI.
+   The phases' walls are printed before the kernels' line.
 
 Kernel times are medians over CUDA-event windows: ``ms`` of one launch a
 window (the host's launch gap included), ``device_ms`` of launches back to
@@ -180,6 +188,7 @@ PIPELINE_KEYS = ("nf_nqs_energy", "nf_energy", "nf_basis_size",
                  "stage_times", "exact_energy", "error_mha",
                  "chemical_accuracy")
 PIPELINE_STAGES = ("stage1", "stage2", "stage3", "stage4", "summary")
+CHEM_ACC_MHA = 1.6                # chemical accuracy against FCI, mHa
 # local energies through the dense, table and on-the-fly routes: f32 sums
 # in other orders, held to 1e-4 of the batch's largest |E_loc| (the dense
 # route divides (H psi)_x by psi_x, which magnifies rounding where psi_x
@@ -825,6 +834,60 @@ def resume_run(h, fci, ckdir, first, sync):
     return res
 
 
+def pipeline_record(pipe, out, fci):
+    """One molecular pipeline run as the smoke reports it: the size tier
+    and its widths, stage 1's epochs and times (the accumulated-basis host
+    eigensolves apart), each stage's basis and error against ``fci`` in
+    mHa, stage 3's rounds, and stage 4's skip reason (or "ran")."""
+    from flow_guided_krylov_torch.pipeline import size_tier
+    r, c, trainer = pipe.results, pipe.config, pipe.trainer
+    hist = r["stage1"]["history"]
+    return {"n_valid": pipe.n_valid, "tier": size_tier(pipe.n_valid),
+            "nqs_hidden_dims": c.nqs_hidden_dims,
+            "nf_hidden_dims": c.nf_hidden_dims,
+            "samples_per_batch": c.samples_per_batch,
+            "max_epochs": c.max_epochs,
+            "epochs_run": len(hist["energies"]), "route": trainer.route,
+            "stage_walls_s": {k: v["total_s"]
+                              for k, v in pipe.timer.summary().items()},
+            "accumulated_energy_s": trainer.accumulated_energy_times,
+            "accumulated_basis": trainer._acc_count,
+            "median_epoch_ms": 1e3 * statistics.median(hist["epoch_times"]),
+            "first_epoch_ms": 1e3 * hist["epoch_times"][0],
+            "nf_basis_size": out["nf_basis_size"],
+            "nf_error_mha": 1000 * (out["nf_energy"] - fci),
+            "residual_basis_size": out["residual_basis_size"],
+            "residual_error_mha": 1000 * (out["residual_energy"] - fci),
+            "stage3_iterations": r["stage3"]["n_iterations"],
+            "stage3_timings_s": r["stage3"]["timings"],
+            "error_mha": out["error_mha"],
+            "stage4": r["stage4"].get("reason", "ran")}
+
+
+def check_pipeline(name, pipe, out, fci):
+    """Raise unless a molecular pipeline run carries the JAX pipeline's
+    results keys, passed its particle audit, kept stage 2 variational,
+    kept stage 3 at or below stage 2, and ended variational and under
+    1.6 mHa against ``fci``."""
+    r = pipe.results
+    missing = [k for k in PIPELINE_KEYS if k not in out]
+    missing += [k for k in PIPELINE_STAGES if k not in r]
+    if missing:
+        raise RuntimeError(f"{name}: results lack the JAX pipeline's keys "
+                           f"{missing}")
+    if not r["stage2"]["audit"]["all_valid"]:
+        raise RuntimeError(f"{name}: particle audit {r['stage2']['audit']}")
+    if not out["nf_energy"] >= fci - 1e-6:
+        raise RuntimeError(f"{name}: stage 2 {out['nf_energy']} below FCI "
+                           f"{fci}")
+    if not out["residual_energy"] <= out["nf_energy"] + 1e-12:
+        raise RuntimeError(f"{name}: stage 3 {out['residual_energy']} above "
+                           f"stage 2 {out['nf_energy']}")
+    if not -1e-6 <= out["error_mha"] < CHEM_ACC_MHA:
+        raise RuntimeError(f"{name}: pipeline error {out['error_mha']} mHa, "
+                           f"not in [-1e-6, {CHEM_ACC_MHA})")
+
+
 def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
                    repro_epochs=20):
     """The molecular pipeline through its entry point,
@@ -872,46 +935,12 @@ def phase_pipeline(device="cuda", molecule="n2", max_epochs=None,
                 "x_sweep": xs.x_sweep_cuda.launches}
     # ---------------------------------------------------------------------
 
-    r = pipe.results
     trainer = pipe.trainer
-    hist = r["stage1"]["history"]
-    res = {"molecule": molecule, "n_valid": pipe.n_valid,
-           "nqs_hidden_dims": pipe.config.nqs_hidden_dims,
-           "nf_hidden_dims": pipe.config.nf_hidden_dims,
-           "samples_per_batch": pipe.config.samples_per_batch,
-           "max_epochs": pipe.config.max_epochs,
-           "route": trainer.route, "wall_s": wall,
-           "stage_walls_s": {k: v["total_s"]
-                             for k, v in pipe.timer.summary().items()},
-           "epochs": len(hist["energies"]),
-           "median_epoch_ms": 1e3 * statistics.median(hist["epoch_times"]),
-           "first_epoch_ms": 1e3 * hist["epoch_times"][0],
-           "accumulated_energy_s": trainer.accumulated_energy_times,
-           "accumulated_basis": trainer._acc_count,
-           "nf_basis_size": out["nf_basis_size"],
-           "nf_error_mha": 1000 * (out["nf_energy"] - fci),
-           "residual_basis_size": out["residual_basis_size"],
-           "residual_error_mha": 1000 * (out["residual_energy"] - fci),
-           "stage3_iterations": r["stage3"]["n_iterations"],
-           "stage3_timings_s": r["stage3"]["timings"],
-           "error_mha": out["error_mha"],
-           "stage4": r["stage4"].get("reason", "ran"),
-           "kernel_launches": launches,
+    res = {"molecule": molecule, **pipeline_record(pipe, out, fci),
+           "wall_s": wall, "kernel_launches": launches,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if cuda else None)}
-    missing = [k for k in PIPELINE_KEYS if k not in out]
-    missing += [k for k in PIPELINE_STAGES if k not in r]
-    if missing:
-        raise RuntimeError(f"results lack the JAX pipeline's keys {missing}")
-    if not r["stage2"]["audit"]["all_valid"]:
-        raise RuntimeError(f"particle audit: {r['stage2']['audit']}")
-    if not out["nf_energy"] >= fci - 1e-6:
-        raise RuntimeError(f"stage 2 {out['nf_energy']} below FCI {fci}")
-    if not out["residual_energy"] <= out["nf_energy"] + 1e-12:
-        raise RuntimeError(f"stage 3 {out['residual_energy']} above stage 2 "
-                           f"{out['nf_energy']}")
-    if not abs(out["error_mha"]) < 1.6:
-        raise RuntimeError(f"pipeline error {out['error_mha']} mHa >= 1.6")
+    check_pipeline(molecule, pipe, out, fci)
     res["resume"] = resume_run(h, fci, ckdir, pipe, sync)
 
     # ---- checks and timings outside the counted run ----------------------
@@ -3487,7 +3516,34 @@ def mesh_sweep_check(mesh, substep, n):
 PT2_SWEEP_MHA = {"h2": 0.0000, "lih": 0.0000, "h2o": 0.0001, "beh2": 0.0001,
                  "nh3": 0.0015, "n2": 0.0012, "ch4": 0.0079}
 PT2_GAP_NOTE_MHA = 0.05          # a larger gap is explained in PERF.md
-CHEM_ACC_MHA = 1.6
+# results/final_benchmark_all.txt: ``benchmark.py --molecule all`` through
+# the four stages at the tiered ``PipelineConfig()`` (the JAX package's
+# record), each molecule's final error in mHa (the summary table,
+# :272-282), its stage-2 basis and that basis's error in mHa (the
+# "selected ... configs" lines) and stage 4's decision.  Its walls are TPU
+# times: none is read here.  The port samples other bases (other RNG
+# streams), so the gap to each record is printed, not asserted.
+HEADLINE_RECORD = {
+    "h2": {"error_mha": 0.0000, "nf_basis": 4, "nf_error_mha": 0.000},
+    "lih": {"error_mha": 0.0000, "nf_basis": 225, "nf_error_mha": 0.000},
+    "h2o": {"error_mha": 0.0000, "nf_basis": 441, "nf_error_mha": 0.000},
+    "beh2": {"error_mha": 0.0000, "nf_basis": 1225, "nf_error_mha": 0.000},
+    "nh3": {"error_mha": 0.0000, "nf_basis": 3063, "nf_error_mha": 0.000},
+    "n2": {"error_mha": 0.0000, "nf_basis": 3037, "nf_error_mha": 2.010},
+    "ch4": {"error_mha": 0.0097, "nf_basis": 3247, "nf_error_mha": 1.915}}
+HEADLINE_STAGE4 = "residual already < 1 mHa"     # the record's, all seven
+# results/h2s_moderate.txt, results/hcn_moderate.txt: the moderate CLI at
+# the FAST preset, its space, error against FCI in mHa and FCI energy (the
+# JAX package's records).  H2S's record predates the published
+# second-row STO-3G exponents (Hehre, Ditchfield, Stewart, Pople 1970)
+# that replaced the in-repo refit's in chem/basis.py: both packages now
+# give FCI -394.35449323773366, 55.3 mHa below the record's, so only the
+# errors compare
+MODERATE_RECORD = {
+    "h2s": {"n_valid": 2025, "error_mha": 5.115907697472721e-10,
+            "exact_energy": -394.29919430686584},
+    "hcn": {"n_valid": 15876, "error_mha": 0.025481205156552278,
+            "exact_energy": -91.84100023011793}}
 
 
 def phase_entry_points(device="cuda", rehearsal=False):
@@ -3614,6 +3670,161 @@ def phase_entry_points(device="cuda", rehearsal=False):
     return res
 
 
+def drive_cli(module, call, device):
+    """``call()``, a CLI function that builds one
+    ``module.FlowGuidedKrylovPipeline``, with that class spied and stage
+    3's PT2 scoring rounds counted (all, and those on the device scorer);
+    the kernel counts are set to 0 just before the call and read just
+    after.  Returns (what ``call`` returned, the pipeline, its output,
+    the call's wall, the memory allocated at its start (after a
+    collection) and its peak, kernel launches and scoring rounds)."""
+    import gc
+    from unittest import mock
+    import torch
+    from flow_guided_krylov_torch.krylov.residual_expansion import \
+        SelectedCIExpander
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    cuda = device == "cuda"
+    scoring = {"rounds": 0, "device": 0}
+
+    def counted(name, key):
+        base = getattr(SelectedCIExpander, name)
+
+        def call_counted(self, *args, **kw):
+            scoring[key] += 1
+            return base(self, *args, **kw)
+        return mock.patch.object(SelectedCIExpander, name, call_counted)
+
+    with spy_runs(module, "FlowGuidedKrylovPipeline") as made, \
+            counted("_pt2_candidates", "rounds"), \
+            counted("_pt2_topk_device", "device"):
+        # ---- the main path: one CLI call, kernel counts read around it --
+        ell.ell_spmv_cuda.launches = 0
+        xs.x_sweep_cuda.launches = 0
+        if cuda:
+            # an earlier run's pipeline (held in reference cycles) off the
+            # card, so the peak is this run's
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated() if cuda else None
+        t0 = time.perf_counter()
+        ret = call()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ell_spmv": ell.ell_spmv_cuda.launches,
+                    "x_sweep": xs.x_sweep_cuda.launches}
+        # -----------------------------------------------------------------
+    if len(made) != 1:
+        raise RuntimeError(f"the CLI built {len(made)} pipelines, not one")
+    (pipe, out), = made
+    return ret, pipe, out, {
+        "wall_s": wall, "kernel_launches": launches,
+        "start_memory_bytes": start_bytes,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if cuda else None),
+        "stage3_scoring_rounds": scoring}
+
+
+def check_stage4_rule(name, pipe, out, fci):
+    """Stage 4 as the reference's rule has it: skipped as "residual
+    already < 1 mHa" where stage 3 ended under 1 mHa (the record's
+    case); otherwise run, and variational (``check_pipeline``).  Returns
+    None, or a note where the port differs from the record."""
+    s4 = pipe.results["stage4"]
+    if out["residual_energy"] - fci < 1e-3:
+        if s4.get("reason") != HEADLINE_STAGE4:
+            raise RuntimeError(f"{name}: stage 3 under 1 mHa, but stage 4 "
+                               f"{s4.get('reason', 'ran')}")
+        return None
+    if s4["skipped"]:
+        raise RuntimeError(f"{name}: stage 3 at "
+                           f"{1000 * (out['residual_energy'] - fci):.4f} mHa"
+                           f" and stage 4 skipped: {s4['reason']}")
+    return ("differs from the record: stage 3 ended at or above 1 mHa, "
+            "so stage 4 ran")
+
+
+def phase_headline(device="cuda", rehearsal=False):
+    """The published seven-molecule table through the port's CLI, as the
+    record ran it: ``benchmark.main(["--molecule", m, "--json"])`` for
+    each molecule (all four stages at the tiered ``PipelineConfig()``:
+    H2, LiH, H2O small; BeH2, NH3 medium; N2, CH4 large, up to 600
+    epochs), then the moderate CLI's ``run(m, "fast")`` on H2S (second-row
+    STO-3G, its sulfur 1s core frozen) and HCN against FCI.  Each pipeline
+    is read through ``drive_cli``; one ``headline <m>:`` or ``moderate
+    <m>:`` line each, then the CLI's summary table of the seven.
+    Checked: the CLI exits 0 (PASS), ``check_pipeline``, stage 4's rule
+    (``check_stage4_rule``) and each moderate system's space.
+    ``rehearsal`` runs H2 and LiH at ``--quick`` and H2S alone."""
+    import io
+    from contextlib import redirect_stdout
+    from flow_guided_krylov_torch import pipeline as pipeline_module
+    from flow_guided_krylov_torch.examples import benchmark
+    from flow_guided_krylov_torch.examples import \
+        moderate_system_benchmark as moderate
+    quick = ["--quick"] if rehearsal else []
+    res, outs = {}, []
+
+    def cli_exit(argv):
+        buf = io.StringIO()
+        code = None
+        try:
+            with redirect_stdout(buf):
+                benchmark.main(argv)
+        except SystemExit as exc:
+            code = exc.code
+        # the CLI's JSON line; its stage-by-stage log stays in the buffer
+        print("".join(ln + "\n" for ln in buf.getvalue().splitlines()
+                      if ln.startswith("{")), end="")
+        return code
+
+    def report(kind, m, pipe, out, run, record):
+        fci = out["exact_energy"]
+        check_pipeline(m, pipe, out, fci)
+        line = {**pipeline_record(pipe, out, fci), **record,
+                "gap_to_record_mha": (out["error_mha"]
+                                      - record["record_error_mha"]), **run}
+        note = check_stage4_rule(m, pipe, out, fci)
+        if note:
+            line["stage4_note"] = note
+        print(f"{kind} {m}: " + json.dumps(line))
+        res[m] = line
+
+    for m in ["h2", "lih"] if rehearsal else list(HEADLINE_RECORD):
+        code, pipe, out, run = drive_cli(pipeline_module, lambda: cli_exit(
+            ["--molecule", m, "--json", "--device", device] + quick), device)
+        if code != 0:
+            raise RuntimeError(f"benchmark --molecule {m} exited {code}")
+        rec = HEADLINE_RECORD[m]
+        report("headline", m, pipe, out, run, {
+            "record_error_mha": rec["error_mha"],
+            "record_nf_basis": rec["nf_basis"],
+            "record_nf_error_mha": rec["nf_error_mha"],
+            "record_stage4": HEADLINE_STAGE4,
+            "cli_seconds": out["total_time"]})
+        outs.append(out)
+        del pipe
+    benchmark.print_summary(outs)
+
+    for m in ["h2s"] if rehearsal else list(MODERATE_RECORD):
+        got, pipe, out, run = drive_cli(
+            moderate, lambda: moderate.run(m, "fast", device=device), device)
+        rec = MODERATE_RECORD[m]
+        if got["n_valid"] != rec["n_valid"]:
+            raise RuntimeError(f"moderate {m}: {got['n_valid']} configs, "
+                               f"record {rec['n_valid']}")
+        report("moderate", m, pipe, out, run, {
+            "record_error_mha": rec["error_mha"],
+            "record_n_valid": rec["n_valid"],
+            "exact_energy": out["exact_energy"],
+            "record_exact_energy": rec["exact_energy"]})
+        del pipe
+    return res
+
+
 def mesh_input_n2_ccpvdz(device="cuda"):
     """The card's cap states of N2/cc-pVDZ restricted SKQD, made as
     ``phase_restricted`` makes them: one Selected-CI round of 600 from HF,
@@ -3650,6 +3861,21 @@ def main_mesh_only():
         "count": torch.cuda.device_count()}}))
 
 
+def main_headline_only():
+    """``python3 chip_smoke.py --only headline``: the build and
+    ``phase_headline`` alone."""
+    import torch
+    phase_device()
+    phase_build()
+    phase_headline()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+ONLY = {"mesh": main_mesh_only, "headline": main_headline_only}
+
+
 def main():
     os.environ.setdefault("FGK_INTEGRAL_CACHE",
                           os.path.join(ROOT, ".fgk_cache"))
@@ -3658,37 +3884,50 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     import flow_guided_krylov_torch  # noqa: F401  (fails outside the repo)
-    if sys.argv[1:] == ["--only", "mesh"]:
-        return main_mesh_only()
-    if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}; "
-                         "none runs every phase, --only mesh the mesh")
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--only" and args[1] in ONLY:
+        return ONLY[args[1]]()
+    if args:
+        raise SystemExit(f"chip_smoke: unknown arguments {args}; none runs "
+                         f"every phase, --only {'|'.join(ONLY)} one phase")
     from flow_guided_krylov_torch.ops.x_sweep import TILE_BITS
-    phase_device()
-    phase_build()
-    rows = phase_kernel()
-    sweep_rows = phase_x_sweep()
-    phase_sweep_parts()
-    n2 = phase_slice()
-    # 200 of the tier's 600 epochs: the accumulated-basis host eigensolves
-    # of epochs 200 and 400 (tens of seconds each) make room for the
-    # phases below
-    phase_pipeline(max_epochs=200)
-    phase_subspace()
-    phase_models()
-    spin = phase_spin()
-    sector = phase_sector()
-    restricted = phase_restricted()
-    spin_pipe = phase_spin_pipeline()
-    eigen = phase_eigensolvers(n2["fci"], n2["fci_s"])
-    multiword = phase_multiword()
-    w4 = phase_skqd_w4(multiword["o3_stage3"])
-    phase_cache_w4(multiword["o3_stage3"])
-    phase_roofline()
-    phase_pt2_block()
-    mesh = phase_mesh(restricted["mesh_input"], n2["fci"])
+    walls = {}
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[fn.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed(phase_device)
+    timed(phase_build)
+    rows = timed(phase_kernel)
+    sweep_rows = timed(phase_x_sweep)
+    timed(phase_sweep_parts)
+    n2 = timed(phase_slice)
+    # 100 of the tier's 600 epochs, the mesh's depth: phase_headline runs
+    # N2's four stages at all 600, so this run serves the checkpoints,
+    # resume, routes, reproducibility and the profiled step
+    timed(phase_pipeline, max_epochs=100)
+    timed(phase_subspace)
+    timed(phase_models)
+    spin = timed(phase_spin)
+    sector = timed(phase_sector)
+    restricted = timed(phase_restricted)
+    spin_pipe = timed(phase_spin_pipeline)
+    eigen = timed(phase_eigensolvers, n2["fci"], n2["fci_s"])
+    multiword = timed(phase_multiword)
+    w4 = timed(phase_skqd_w4, multiword["o3_stage3"])
+    timed(phase_cache_w4, multiword["o3_stage3"])
+    timed(phase_roofline)
+    timed(phase_pt2_block)
+    mesh = timed(phase_mesh, restricted["mesh_input"], n2["fci"])
     del restricted["mesh_input"]
-    phase_entry_points()
+    timed(phase_entry_points)
+    # after the entry points, whose --pt2-only runs cached the seven FCI
+    # energies on disk
+    timed(phase_headline)
+    print("phase walls (s): " + json.dumps(walls))
     rows += (sector["rows"] + restricted["rows"] + eigen["rows"]
              + w4["rows"] + mesh["rows"])
     # paths named by the function that drove them: the CLIs' own

@@ -209,10 +209,19 @@ def adam_state_dict(opt_state: Any, to_state_dict, module: torch.nn.Module
 def load_trainer_from_jax(trainer, jax_trainer) -> None:
     """Start a port ``FlowNQSTrainer`` or ``PhysicsGuidedFlowTrainer``
     (particle flow + ``DenseNQS``) from a JAX trainer of the same class
-    and widths: both networks' params and both Adam states."""
+    and widths: both networks' params and both Adam states, and a
+    ``PhysicsGuidedFlowTrainer``'s accumulated basis (its host rows, kept
+    in the port's device key buffer ``_acc_keys`` / ``_acc_count``)."""
     for name, conv in (("flow", particle_flow_state_dict),
                        ("nqs", dense_nqs_state_dict)):
         module = getattr(trainer, name)
         module.load_state_dict(conv(getattr(jax_trainer, name + "_params")))
         getattr(trainer, name + "_opt").load_state_dict(adam_state_dict(
             getattr(jax_trainer, name + "_opt_state"), conv, module))
+    if hasattr(jax_trainer, "_acc_buf"):
+        basis = jax_trainer.accumulated_basis
+        cap = trainer.config.max_accumulated_basis
+        if basis is not None and len(basis) > cap:
+            raise ValueError(f"{len(basis)} accumulated configurations do "
+                             f"not fit the port trainer's cap of {cap}")
+        trainer.accumulated_basis = basis

@@ -5,8 +5,8 @@ CO / HCN / C2H2 / C2H4 plus 6-31G H2O and H2S, auto-configured with
 ``SystemScaler`` FAST/BALANCED/ACCURATE presets; FCI reference when the
 configuration space is tractable, else the active-space CCSD(T) energy.
 
-Second-row elements (H2S) use the in-repo Slater-rule STO-3G refit
-(``chem/basis.py``).
+Second-row elements (H2S) take STO-3G from the published
+standard-molecular Slater exponents (``chem/basis.py``).
 
 Usage:
     python -m flow_guided_krylov_torch.examples.moderate_system_benchmark --molecule co --preset fast
@@ -36,8 +36,8 @@ GEOMETRIES = {
               ("H", (0, 0.9289, 1.2321)), ("H", (0, -0.9289, 1.2321))],
              "sto-3g"),
     "h2o_631g": (None, "6-31g"),
-    # r(SH)=1.336 A, angle 92.1 deg; second-row STO-3G via the in-repo
-    # Slater-rule refit (chem/basis.py)
+    # r(SH)=1.336 A, angle 92.1 deg; second-row STO-3G from the published
+    # standard-molecular Slater exponents (chem/basis.py)
     "h2s": ([("S", (0.0, 0.0, 0.0)),
              ("H", (0.9617, 0.0, 0.9268)),
              ("H", (-0.9617, 0.0, 0.9268))], "sto-3g"),

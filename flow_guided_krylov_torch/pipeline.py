@@ -69,6 +69,19 @@ __all__ = ["PipelineConfig", "FlowGuidedKrylovPipeline",
 
 MHA = 1e-3
 CHEMICAL_ACCURACY = 1.6e-3  # 1 kcal/mol in Hartree
+# the size tiers of ``PipelineConfig.adapt_to_system_size``: the largest
+# configuration space of each, the JAX package's thresholds
+_TIER_TOPS = (("small", 1000), ("medium", 5000), ("large", 20000),
+              ("very_large", 500_000))
+
+
+def size_tier(n_valid_configs: int) -> str:
+    """The size tier ``PipelineConfig.adapt_to_system_size`` applies to a
+    configuration space of ``n_valid_configs`` determinants or states."""
+    for tier, top in _TIER_TOPS:
+        if n_valid_configs <= top:
+            return tier
+    return "huge"
 
 
 @dataclass
@@ -146,14 +159,13 @@ class PipelineConfig:
     def adapt_to_system_size(self, n_valid_configs: int) -> "PipelineConfig":
         """Tiered rescaling by configuration-space size (the JAX package's
         tiers and caps)."""
-        if n_valid_configs <= 1000:
-            tier = "small"
+        tier = size_tier(n_valid_configs)
+        if tier == "small":
             self.max_accumulated_basis = max(self.max_accumulated_basis,
                                              n_valid_configs)
             self.max_diverse_configs = min(n_valid_configs,
                                            self.max_diverse_configs)
-        elif n_valid_configs <= 5000:
-            tier = "medium"
+        elif tier == "medium":
             self.max_accumulated_basis = min(n_valid_configs, 8192)
             self.max_diverse_configs = min(n_valid_configs, 4096)
             self.residual_iterations = max(self.residual_iterations, 10)
@@ -161,8 +173,7 @@ class PipelineConfig:
                 self.residual_configs_per_iter, 200)
             if len(self.nqs_hidden_dims) < 5:
                 self.nqs_hidden_dims = [384] * 5
-        elif n_valid_configs <= 20000:
-            tier = "large"
+        elif tier == "large":
             self.max_accumulated_basis = min(n_valid_configs, 12288)
             self.max_diverse_configs = min(n_valid_configs, 8192)
             self.residual_iterations = 15
@@ -171,8 +182,7 @@ class PipelineConfig:
             self.nqs_hidden_dims = [512] * 5
             self.max_epochs = max(self.max_epochs, 600)
             self.samples_per_batch = 4000
-        elif n_valid_configs <= 500_000:
-            tier = "very_large"
+        elif tier == "very_large":
             self.max_accumulated_basis = 16384
             self.max_diverse_configs = min(n_valid_configs, 12288)
             self.residual_iterations = 20
@@ -187,7 +197,6 @@ class PipelineConfig:
             # million-config spaces: stage 3 is the engine, so the
             # expansion budget must be deep, and stage-4 sampling needs
             # full-size shot budgets
-            tier = "huge"
             self.max_accumulated_basis = 32768
             self.max_diverse_configs = min(n_valid_configs, 16384)
             self.residual_iterations = 30

@@ -431,3 +431,43 @@ def test_graft_entry_step():
     metrics = fn(*args)
     assert metrics.shape == (6,) and bool(torch.isfinite(metrics).all())
     assert fn.__self__.route == "fly"
+
+
+# the keys of each line ``chip_smoke.phase_headline`` prints
+HEADLINE_KEYS = {
+    "n_valid", "tier", "nqs_hidden_dims", "samples_per_batch", "max_epochs",
+    "epochs_run", "route", "stage_walls_s", "accumulated_energy_s",
+    "median_epoch_ms", "nf_basis_size", "nf_error_mha",
+    "residual_basis_size", "residual_error_mha", "stage3_iterations",
+    "error_mha", "record_error_mha", "stage4", "wall_s",
+    "peak_memory_bytes", "kernel_launches", "stage3_scoring_rounds"}
+
+
+def test_chip_smoke_headline_rehearsal(capsys):
+    """``chip_smoke.phase_headline``'s glue without a card: H2 and LiH
+    through the benchmark CLI at ``--quick`` and H2S through the moderate
+    CLI, each line carrying its keys, stage 4 by the reference's rule and
+    the CLI's summary table."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = smoke.phase_headline(device="cpu", rehearsal=True)
+    text = capsys.readouterr().out
+    lines = {ln.split(":")[0]: json.loads(ln.split(": ", 1)[1])
+             for ln in text.splitlines()
+             if ln.startswith(("headline ", "moderate "))}
+    assert sorted(lines) == ["headline h2", "headline lih", "moderate h2s"]
+    for name, line in lines.items():
+        assert HEADLINE_KEYS <= set(line), name
+        assert line == json.loads(json.dumps(res[name.split()[1]]))
+        assert -1e-6 <= line["error_mha"] < 1.6
+        assert line["stage4"] == "residual already < 1 mHa"
+        assert line["kernel_launches"] == {"ell_spmv": 0, "x_sweep": 0}
+        assert line["peak_memory_bytes"] is None
+    assert {lines[f"headline {m}"]["record_nf_basis"]
+            for m in ("h2", "lih")} == {4, 225}
+    assert lines["headline h2"]["record_stage4"] == "residual already < 1 mHa"
+    assert lines["moderate h2s"]["n_valid"] == 2025
+    assert lines["moderate h2s"]["tier"] == "medium"
+    assert "2/2 within chemical accuracy (1.6 mHa)" in text
