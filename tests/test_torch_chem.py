@@ -11,6 +11,7 @@ the NumPy engine to the end; the module fixture :func:`_jax_engine`
 rebuilds that library race-free for such a worker before the comparison
 (the port's loader builds under a temporary name)."""
 
+import contextlib
 import fcntl
 import importlib.util
 import os
@@ -20,6 +21,7 @@ from unittest import mock
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 from flow_guided_krylov_tpu.chem import compute_molecular_integrals as jax_mi
 from flow_guided_krylov_tpu.chem import native as jax_native
@@ -45,6 +47,24 @@ GEOMETRIES = {
 FACTORY_MOLECULES = ("beh2", "nh3", "ch4")
 MODERATE_MOLECULES = ("h2s", "hcn")
 FIELDS = ("h1e", "h2e", "nuclear_repulsion", "n_alpha", "n_beta")
+ACTIVE_FIELDS = FIELDS + ("n_electrons", "n_orbitals", "hf_energy",
+                          "mo_energies")
+# the SKQD validation suite's systems and the two frontier models, as the
+# two packages' CLIs hand them to the chem front end
+# (``examples/skqd_validation.py``, ``examples/large_system_benchmark.py``):
+# name -> (CLI function, its arguments); the port's takes ``device`` too
+VALIDATION_SYSTEMS = {
+    "lih_631g": ("skqd_validation", "run_631g", ("lih",)),
+    "h2o_631g": ("skqd_validation", "run_631g", ("h2o",)),
+    "n2_stretched_1.3": ("skqd_validation", "build", ("n2", 1.3)),
+    "h2o_stretched_1.5": ("skqd_validation", "build", ("h2o", 1.5)),
+    "benzene_pi": ("large_system_benchmark", "benzene_pi", ()),
+    "fe_porphyrin_model": ("large_system_benchmark", "fe_porphyrin_model",
+                           ()),
+}
+# the front end's defaults, which the port's CLIs pass and the JAX
+# package's leave out
+SPEC_DEFAULTS = {"basis": "sto-3g", "charge": 0, "spin": 0}
 
 
 class _Geometry(Exception):
@@ -62,15 +82,75 @@ def _factory_geometry(module, *args, name):
     return caught.value.args[0]
 
 
+def _jax_script(name):
+    """The JAX package's ``examples/<name>.py``, loaded without running
+    its command line."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_script_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
 def _jax_moderate_geometries():
     """``GEOMETRIES`` of the JAX package's ``examples/
     moderate_system_benchmark.py``, read without running the script."""
-    spec = importlib.util.spec_from_file_location(
-        "jax_moderate_geometries",
-        os.path.join(ROOT, "examples", "moderate_system_benchmark.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
-    return script.GEOMETRIES
+    return _jax_script("moderate_system_benchmark").GEOMETRIES
+
+
+def _cli_spec(call, *targets):
+    """(geometry, front-end keywords, (n_frozen, n_active) or None) that
+    ``call`` hands to the chem front end, caught before any integral:
+    ``targets`` are the (module, attribute) pairs through which the CLI
+    reaches ``compute_molecular_integrals``,
+    ``compute_active_space_integrals`` and ``MolecularHamiltonian``."""
+    seen = {}
+
+    def integrals(geometry, **kw):
+        seen["spec"] = (geometry, {**SPEC_DEFAULTS, **kw})
+        return "integrals"
+
+    def active(_, n_frozen, n_active=None):
+        raise _Geometry((*seen["spec"], (n_frozen, n_active)))
+
+    def hamiltonian(*_, **__):
+        raise _Geometry((*seen["spec"], None))
+
+    fakes = {"compute_molecular_integrals": integrals,
+             "compute_active_space_integrals": active,
+             "MolecularHamiltonian": hamiltonian}
+    with contextlib.ExitStack() as stack:
+        for module, attr in targets:
+            stack.enter_context(mock.patch.object(module, attr, fakes[attr]))
+        with pytest.raises(_Geometry) as caught:
+            call()
+    return caught.value.args[0]
+
+
+def _validation_spec(name):
+    """A validation or frontier system's (geometry, keywords, window),
+    taken from both packages' CLIs and held equal."""
+    import flow_guided_krylov_tpu.chem as jchem
+    import flow_guided_krylov_tpu.chem.active_space as jactive
+    import flow_guided_krylov_tpu.hamiltonians as jham
+    from flow_guided_krylov_torch.examples import large_system_benchmark
+    from flow_guided_krylov_torch.examples import skqd_validation
+    script, fn, args = VALIDATION_SYSTEMS[name]
+    port = {"skqd_validation": skqd_validation,
+            "large_system_benchmark": large_system_benchmark}[script]
+    mine = _cli_spec(
+        lambda: getattr(port, fn)(*args, device="cpu"),
+        *((port, a) for a in ("compute_molecular_integrals",
+                              "compute_active_space_integrals",
+                              "MolecularHamiltonian")))
+    ref = _cli_spec(
+        lambda: getattr(_jax_script(script), fn)(*args),
+        (jchem, "compute_molecular_integrals"),
+        (jchem, "compute_active_space_integrals"),
+        (jactive, "compute_active_space_integrals"),
+        (jham, "MolecularHamiltonian"))
+    assert mine == ref
+    return mine
 
 
 def _geometry(name):
@@ -86,6 +166,15 @@ def _geometry(name):
         ref = _factory_geometry(jax_mol, name=name)
     assert mine == ref
     return mine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The BLAS and OpenMP pools at one thread, as torch's: the suite runs
+    this file beside others on every core, where idle pool threads that
+    spin take the cores other workers need."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -117,23 +206,43 @@ def test_both_packages_use_the_same_eri_engine():
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES) + list(FACTORY_MOLECULES)
-                         + list(MODERATE_MOLECULES))
+                         + list(MODERATE_MOLECULES)
+                         + list(VALIDATION_SYSTEMS))
 def test_integrals_bit_equal_to_jax_package(name, tmp_path):
-    geom = _geometry(name)
+    """Each system's integrals, and, where its CLI folds a frozen-core
+    window (H2O/6-31G (1, 10), benzene pi (18, 6), the Fe(II)N4 model
+    (22, 10) at charge 2 and spin 4), that window's, bit for bit."""
+    from flow_guided_krylov_tpu.chem.active_space import \
+        compute_active_space_integrals as jax_active
+    from flow_guided_krylov_torch.chem import compute_active_space_integrals
+    if name in VALIDATION_SYSTEMS:
+        geom, kw, window = _validation_spec(name)
+    else:
+        geom, kw, window = _geometry(name), {}, None
     assert native.native_available() == jax_native.native_available()
-    mine = compute_molecular_integrals(geom, cache_dir=str(tmp_path / "port"))
-    ref = jax_mi(geom, cache_dir=str(tmp_path / "jax"))
+    mine = compute_molecular_integrals(geom, cache_dir=str(tmp_path / "port"),
+                                       **kw)
+    ref = jax_mi(geom, cache_dir=str(tmp_path / "jax"), **kw)
     for field in FIELDS:
         np.testing.assert_array_equal(getattr(mine, field),
                                       getattr(ref, field), err_msg=field)
     # each reads the other's cache file: one format, one key
-    again = compute_molecular_integrals(geom, cache_dir=str(tmp_path / "jax"))
-    back = jax_mi(geom, cache_dir=str(tmp_path / "port"))
+    again = compute_molecular_integrals(geom, cache_dir=str(tmp_path / "jax"),
+                                        **kw)
+    back = jax_mi(geom, cache_dir=str(tmp_path / "port"), **kw)
     for field in FIELDS:
         np.testing.assert_array_equal(getattr(again, field),
                                       getattr(ref, field), err_msg=field)
         np.testing.assert_array_equal(getattr(back, field),
                                       getattr(mine, field), err_msg=field)
+    if window is not None:
+        mine_w = compute_active_space_integrals(mine, *window)
+        ref_w = jax_active(ref, *window)
+        for field in ACTIVE_FIELDS:
+            np.testing.assert_array_equal(getattr(mine_w, field),
+                                          getattr(ref_w, field),
+                                          err_msg=field)
+        assert mine_w.n_orbitals == window[1]
 
 
 def test_active_space_bit_equal_to_jax_package(tmp_path, monkeypatch):
@@ -151,8 +260,7 @@ def test_active_space_bit_equal_to_jax_package(tmp_path, monkeypatch):
     for n_active in (None, 6):
         mine = compute_active_space_integrals(ints, 2, n_active)
         ref = jax_active(jax_mi(geom, cache_dir=str(tmp_path)), 2, n_active)
-        for field in FIELDS + ("n_electrons", "n_orbitals", "hf_energy",
-                               "mo_energies"):
+        for field in ACTIVE_FIELDS:
             np.testing.assert_array_equal(getattr(mine, field),
                                           getattr(ref, field), err_msg=field)
         assert mine.n_orbitals == (n_active or 8) and mine.n_alpha == 5
