@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only mesh       # the build and phase_mesh alone
     python3 chip_smoke.py --only headline   # the build and phase_headline
     python3 chip_smoke.py --only validation # the build and phase_validation
+    python3 chip_smoke.py --only spin_frontier      # phase_spin_frontier
+    python3 chip_smoke.py --only fullspace_refined  # TFIM-25/26 refined
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (one ``nvcc`` per source, started together), holds each against
@@ -154,8 +156,20 @@ statevector):
    2), then ``large_system_benchmark`` at FAST on benzene's pi space and
    the Fe(II)N4 model; each experiment checked variational, by its own
    algebra and, where the record reached it, under 1.6 mHa, and printed
-   beside its record.
+   beside its record;
+16. the spin-lattice frontier (``phase_spin_frontier``): TFIM-28 (h =
+   0.5) Trotter SKQD through the lattice CLI's
+   ``run_large_convergence_study`` at the record's point (k = 16, 300k
+   shots, dt = 0.1; 2^28 amplitudes through x_sweep, no plain rotation),
+   the kernel against plain on that run's own word lists; TFIM-25 and
+   TFIM-26 (h = 1) full-space ED, the device stage, through
+   ``ell-fused`` (and at 26 sites ``flip-stepped`` too), each against
+   the free-fermion energy, and the ELL kernel at the 2^25 and 2^26
+   identity tables.
    The phases' walls are printed before the kernels' line.
+   ``--only fullspace_refined`` runs the lattice CLI's refined
+   ``--exact-full`` at 25 and 26 spins (host f64 refine, minutes each),
+   which the whole run leaves out.
 
 Kernel times are medians over CUDA-event windows: ``ms`` of one launch a
 window (the host's launch gap included), ``device_ms`` of launches back to
@@ -496,6 +510,60 @@ def sweep_words(kind, n, tile_bits):
     return words
 
 
+def x_sweep_rows(n, lists, gen):
+    """The x_sweep kernel against its plain version on 2^n random
+    amplitudes from ``gen``: each (kind, words, tile_bits) of ``lists``
+    forward and reversed, a kind ending in ``high`` on the gathered tiles
+    of ``plan_sweeps``, the others on the contiguous tile; each timed
+    beside its bound.  Prints and returns one row each."""
+    import torch
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+
+    rows = []
+    re = torch.randn(1 << n, generator=gen, device="cuda")
+    im = torch.randn(1 << n, generator=gen, device="cuda")
+    for kind, words, tile_bits in lists:
+        for reverse in (False, True):
+            seq = words[::-1] if reverse else words
+            if kind.endswith("high"):
+                sweep = xs.make_gathered_sweeps(n, seq, tile_bits)
+                launches = len(xs.plan_sweeps(seq, n, tile_bits))
+            else:
+                sweep = xs.make_x_sweep(n, words, tile_bits, reverse)
+                launches = 1
+            plain = xs.x_sweep_reference(re, im, seq, n)
+            got = sweep(re, im)
+            torch.cuda.synchronize()
+            err = max(float((g - p).abs().max())
+                      for g, p in zip(got, plain))
+            del got, plain
+            if not err <= SWEEP_TOL:
+                raise RuntimeError(
+                    f"x_sweep n={n} {kind} T={tile_bits} "
+                    f"reverse={reverse}: {err} > {SWEEP_TOL}")
+            ms = _median_ms(lambda: sweep(re, im), 20)
+            device_ms = _median_ms(lambda: sweep(re, im), 10, 5)
+            plain_ms = _median_ms(
+                lambda: xs.x_sweep_reference(re, im, seq, n), 3)
+            # the function reads and writes the state once, however
+            # many launches carry it; 8 flops an amplitude and word:
+            # 4 products, 2 sums and the sign's 2 products
+            bound_ms, bound_by = bound(16.0 * (1 << n),
+                                       8.0 * len(words) * (1 << n))
+            row = {"n": n, "words": kind, "n_words": len(words),
+                   "tile_bits": tile_bits, "launches": launches,
+                   "reverse": reverse, "max_abs_err": err, "ms": ms,
+                   "device_ms": device_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_share": bound_ms / ms,
+                   "device_bound_share": bound_ms / device_ms}
+            rows.append(row)
+            print("x_sweep: " + json.dumps(row))
+    del re, im
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_x_sweep():
     """The x_sweep kernel against its plain version: contiguous tiles
     (TFIM-24's low words, the main path's shape, and a mixed list at
@@ -503,7 +571,6 @@ def phase_x_sweep():
     main path's other shape, and a mixed list straddling bit 13|14) at
     n = 24 and 28, forward and reversed."""
     import torch
-    from flow_guided_krylov_torch.ops import x_sweep as xs
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -511,48 +578,9 @@ def phase_x_sweep():
                    ("tfim_high", 14), ("mixed_high", 14))),
              (28, (("mixed", 14), ("mixed_high", 14))))
     for n, kinds in cases:
-        re = torch.randn(1 << n, generator=gen, device="cuda")
-        im = torch.randn(1 << n, generator=gen, device="cuda")
-        for kind, tile_bits in kinds:
-            words = sweep_words(kind, n, tile_bits)
-            for reverse in (False, True):
-                seq = words[::-1] if reverse else words
-                if kind.endswith("high"):
-                    sweep = xs.make_gathered_sweeps(n, seq, tile_bits)
-                    launches = len(xs.plan_sweeps(seq, n, tile_bits))
-                else:
-                    sweep = xs.make_x_sweep(n, words, tile_bits, reverse)
-                    launches = 1
-                plain = xs.x_sweep_reference(re, im, seq, n)
-                got = sweep(re, im)
-                torch.cuda.synchronize()
-                err = max(float((g - p).abs().max())
-                          for g, p in zip(got, plain))
-                del got, plain
-                if not err <= SWEEP_TOL:
-                    raise RuntimeError(
-                        f"x_sweep n={n} {kind} T={tile_bits} "
-                        f"reverse={reverse}: {err} > {SWEEP_TOL}")
-                ms = _median_ms(lambda: sweep(re, im), 20)
-                device_ms = _median_ms(lambda: sweep(re, im), 10, 5)
-                plain_ms = _median_ms(
-                    lambda: xs.x_sweep_reference(re, im, seq, n), 3)
-                # the function reads and writes the state once, however
-                # many launches carry it; 8 flops an amplitude and word:
-                # 4 products, 2 sums and the sign's 2 products
-                bound_ms, bound_by = bound(16.0 * (1 << n),
-                                           8.0 * len(words) * (1 << n))
-                row = {"n": n, "words": kind, "n_words": len(words),
-                       "tile_bits": tile_bits, "launches": launches,
-                       "reverse": reverse, "max_abs_err": err, "ms": ms,
-                       "device_ms": device_ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "bound_share": bound_ms / ms,
-                       "device_bound_share": bound_ms / device_ms}
-                rows.append(row)
-                print("x_sweep: " + json.dumps(row))
-        del re, im
-        torch.cuda.empty_cache()
+        rows += x_sweep_rows(n, [(kind, sweep_words(kind, n, tile_bits),
+                                tile_bits) for kind, tile_bits in kinds],
+                           gen)
     return rows
 
 
@@ -4174,6 +4202,264 @@ def phase_validation(device="cuda", rehearsal=False):
     return res
 
 
+# the spin-lattice frontier (``phase_spin_frontier``): TFIM-28 (h = 0.5)
+# Trotter SKQD at the record's study point (k, shots, dt), its basis and
+# error (results/val_tfim28_study.txt, row 2) and the free-fermion energy
+# (results/val_lattice_tfim28.txt); TFIM-25/26 (h = 1) full-space ED, the
+# free-fermion energy, refined error and route of each record
+# (results/val_tfim25_exactfull.txt, val_tfim26_exactfull.txt).  The
+# records' walls are TPU times: none is read here.
+SPIN_FRONTIER_STUDY = {"sites": 28, "h": 0.5, "point": (16, 300_000, 0.1),
+                       "basis_size": 105_897,
+                       "error_mha": 3.0046026718011376,
+                       "exact": -29.779243479605878,
+                       "path": "results/val_tfim28_study.txt"}
+SPIN_FRONTIER_FULLSPACE = {
+    25: {"exact": -31.85194221981731, "error_mha": 1.7763568394002505e-11,
+         "route": "streamed", "path": "results/val_tfim25_exactfull.txt"},
+    26: {"exact": -33.124375156473974, "error_mha": 4.263256414560601e-11,
+         "route": "flip-stepped",
+         "path": "results/val_tfim26_exactfull.txt"}}
+FREE_FERMION_TOL = 1e-12          # the port's closed form against a record
+
+
+def phase_spin_frontier(device="cuda", rehearsal=False):
+    """The spin-lattice frontier at the records' widths and settings:
+
+    1. TFIM-28 (h = 0.5) Trotter SKQD through the lattice CLI's
+       ``run_large_convergence_study`` at the record's point (k = 16,
+       300k shots, dt = 0.1, ``final_only``): 2^28 amplitudes, every
+       Trotter word through x_sweep, no plain rotation on the card; then
+       the kernel against its plain version on the run's own low words
+       (contiguous tile) and high words (gathered tiles);
+    2. TFIM-25 (h = 1) full-space ED, the device stage
+       (``exact_fullspace_ground_state(refine_host=False)``), which takes
+       ``ell-fused`` on the card;
+    3. TFIM-26 the same, on ``ell-fused`` and then on ``flip-stepped``
+       (reached by reporting a budget of six 2^26 vectors and no table:
+       memory alone picks the route); then the ELL kernel against its
+       plain version at the 2^25 and 2^26 identity tables.
+
+    Each part prints one ``spin frontier <part>:`` line.  ``rehearsal``
+    runs TFIM-12 (through the Trotter path, as 28 sites take it) and
+    TFIM-14/16, for a run without a card.  Returns the kernels' launches
+    by path and their rows."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.examples import \
+        skqd_lattice_validation as lat
+    from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_torch.krylov import skqd as skqd_mod
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+    from flow_guided_krylov_torch.postprocessing.eigensolver import (
+        _build_fullspace_ell_device, exact_fullspace_ground_state)
+    from flow_guided_krylov_torch.utils import memory
+    cuda = device == "cuda"
+    n_study = 12 if rehearsal else SPIN_FRONTIER_STUDY["sites"]
+    ed_sites = (14, 16) if rehearsal else tuple(SPIN_FRONTIER_FULLSPACE)
+    h_study = SPIN_FRONTIER_STUDY["h"]
+    k, shots, dt = SPIN_FRONTIER_STUDY["point"]
+    lattice = "skqd_lattice_validation."
+    out = {"by_path": {}, "sweep_by_path": {}, "rows": [], "sweep_rows": [],
+           "lines": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_start():
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else None
+
+    def emit(part, line):
+        out["lines"][part] = line
+        print(f"spin frontier {part}: " + json.dumps(line))
+
+    # ---- 1. TFIM-28 Trotter SKQD: the main path, counted launches -------
+    e_exact = tfim_free_fermion_energy(n_study, 1.0, h_study)
+    if not rehearsal and not abs(e_exact - SPIN_FRONTIER_STUDY["exact"]) \
+            <= FREE_FERMION_TOL:
+        raise RuntimeError(f"TFIM-{n_study} free-fermion {e_exact} vs the "
+                           f"record's {SPIN_FRONTIER_STUDY['exact']}")
+    words = []
+    gathered = skqd_mod.make_gathered_sweeps
+
+    def record_words(n, ws, *args, **kw):
+        words.append(list(ws))
+        return gathered(n, ws, *args, **kw)
+
+    def trotter_from_12(cfg):
+        cfg.trotter_threshold = n_study - 1
+
+    events = []
+    xs.x_sweep_cuda.launches = 0
+    xs._pauli_rotation_pair.cuda_calls = 0
+    peak_start()
+    t0 = time.perf_counter()
+    with spy_runs(lat, "SampleBasedKrylovDiagonalization",
+                  on_init=trotter_from_12 if rehearsal else None) as made, \
+            mock.patch.object(skqd_mod, "make_gathered_sweeps",
+                              record_words), timed_solves(events):
+        study = lat.run_large_convergence_study(
+            n_study, h_study, points=[(k, shots, dt)], device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = xs.x_sweep_cuda.launches
+    plain_rotations = xs._pauli_rotation_pair.cuda_calls
+    # ---------------------------------------------------------------------
+
+    if len(study) != 1 or len(made) != 1 or len(words) != 1:
+        raise RuntimeError(f"run_large_convergence_study: {len(study)} "
+                           f"rows, {len(made)} runs, {len(words)} substeps")
+    skqd, run = made[0]
+    cfg, row = skqd.config, study[0]
+    if (cfg.max_krylov_dim, cfg.shots_per_krylov, cfg.time_step,
+            cfg.num_trotter_steps, cfg.evolution, cfg.seed) != (
+            k, shots, dt, 8, "auto", 0):
+        raise RuntimeError(f"the study's SKQD config: {cfg}")
+    if not skqd.use_trotter:
+        raise RuntimeError(f"TFIM-{n_study} SKQD did not take the Trotter "
+                           f"path")
+    if (row["energy"] != run["final_energy"]
+            or row["basis_size"] != run["basis_sizes"][-1]):
+        raise RuntimeError(f"the study's row {row} is not its run's")
+    if not np.isfinite(row["energy"]):
+        raise RuntimeError(f"non-finite energy {row['energy']}")
+    if not row["error_mha"] >= -1e-6:
+        raise RuntimeError(f"variational violation: {row['error_mha']} mHa")
+    if not row["error_mha"] < 10.0:
+        raise RuntimeError(f"TFIM-{n_study} SKQD error {row['error_mha']} "
+                           f"mHa >= 10")
+    plan = xs.plan_sweeps(words[0], n_study)
+    expected = (k - 1) * cfg.num_trotter_steps * len(plan)
+    if cuda and launches != expected:
+        raise RuntimeError(f"TFIM-{n_study} SKQD launched x_sweep "
+                           f"{launches} times, not {expected}")
+    if plain_rotations:
+        raise RuntimeError(f"TFIM-{n_study} SKQD ran {plain_rotations} "
+                           f"plain rotations on the card")
+    solves = [e for e in events if e[0] == "eig"]
+    line = {"model": f"tfim{n_study}", "h": h_study,
+            "entry": lattice + "run_large_convergence_study",
+            "krylov_dim": k, "shots": shots, "dt": dt,
+            "trotter": skqd.use_trotter, "exact_energy": e_exact,
+            "energy": row["energy"], "error_mha": row["error_mha"],
+            "basis_size": row["basis_size"], "wall_s": wall,
+            "eigensolve_s": sum(e[2] for e in solves),
+            "eigensolve_rows": [e[3] for e in solves],
+            "x_sweep_launches": launches, "launches_per_substep": len(plan),
+            "plain_rotations_on_card": plain_rotations,
+            "peak_memory_bytes": peak()}
+    if not rehearsal:
+        line["record"] = {key: SPIN_FRONTIER_STUDY[key]
+                          for key in ("basis_size", "error_mha", "path")}
+    emit(f"tfim{n_study}", line)
+    out["sweep_by_path"][
+        f"{lattice}run_large_convergence_study(tfim, {n_study})"] = launches
+    half = len(words[0]) // 2                 # seq, then seq reversed
+    tile = 1 << min(xs.TILE_BITS, n_study)
+    low = [w for w in words[0][:half] if w[1] < tile]
+    high = [w for w in words[0][:half] if w[1] >= tile]
+    del made, skqd, run, study
+    if cuda:
+        # the kernel on the run's own word lists, outside the count
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        out["sweep_rows"] = x_sweep_rows(
+            n_study, [("tfim", low, xs.TILE_BITS),
+                      ("tfim_high", high + high[::-1], xs.TILE_BITS)], gen)
+
+    # ---- 2, 3. full-space ED, the device stage --------------------------
+    def tfim(n):
+        return TransverseFieldIsing(n, V=1.0, h=1.0, periodic=True,
+                                    device=device)
+
+    total = memory.device_memory_bytes(device)
+    ell.ell_spmv_cuda.launches = 0
+    runs = ((ed_sites[0], "ell-fused"), (ed_sites[1], "ell-fused"),
+            (ed_sites[1], "flip-stepped"))
+    by_n = {}
+    for i, (n, route) in enumerate(runs):
+        exact = tfim_free_fermion_energy(n, 1.0, 1.0)
+        record = None if rehearsal else SPIN_FRONTIER_FULLSPACE[n]
+        if record and not abs(exact - record["exact"]) <= FREE_FERMION_TOL:
+            raise RuntimeError(f"TFIM-{n} free-fermion {exact} vs the "
+                               f"record's {record['exact']}")
+        # memory alone picks the route: the table-free flips are reached
+        # by reporting a budget that holds six 2^n vectors and no table
+        budget = total if route == "ell-fused" else 64 * 4 << n
+        forced = (contextlib.nullcontext() if route == "ell-fused" else
+                  mock.patch.object(memory, "device_memory_bytes",
+                                    lambda device, b=budget: b))
+        before = ell.ell_spmv_cuda.launches
+        peak_start()
+        t0 = time.perf_counter()
+        with forced:
+            res = exact_fullspace_ground_state(tfim(n), refine_host=False,
+                                               use_cache=False,
+                                               verbose=False)
+        sync()
+        res.update(wall_s=time.perf_counter() - t0,
+                   ell_launches=ell.ell_spmv_cuda.launches - before,
+                   peak_memory_bytes=peak(), device_memory_bytes=budget,
+                   exact=exact, device_gap=res["e_device"] - exact)
+        if res["route"] != route:
+            raise RuntimeError(f"TFIM-{n} took {res['route']}, not {route}")
+        if not abs(res["device_gap"]) < EIGENSOLVER_TOL:
+            raise RuntimeError(f"TFIM-{n} {route}: {res['e_device']} vs "
+                               f"{exact} (tolerance {EIGENSOLVER_TOL})")
+        routes = by_n.setdefault(n, {})
+        depth = res["lanczos_m"] * res["restarts"]
+        if route == "flip-stepped":
+            res["gap_to_ell_fused"] = (res["e_device"]
+                                       - routes["ell-fused"]["e_device"])
+            if res["ell_launches"]:
+                raise RuntimeError(f"TFIM-{n} flip-stepped launched the ELL "
+                                   f"kernel {res['ell_launches']} times")
+            if not abs(res["gap_to_ell_fused"]) < EIGENSOLVER_TOL:
+                raise RuntimeError(f"TFIM-{n} flip-stepped "
+                                   f"{res['e_device']} vs ell-fused "
+                                   f"{routes['ell-fused']['e_device']}")
+        else:
+            # restarts end early only when a restart changes nothing
+            if cuda and not 0 < res["ell_launches"] <= depth:
+                raise RuntimeError(f"TFIM-{n}: {res['ell_launches']} ELL "
+                                   f"launches for m x restarts = {depth}")
+            out["by_path"][f"eigensolver.exact_fullspace_ground_state"
+                           f"(tfim, {n})"] = res["ell_launches"]
+        routes[route] = res
+        if i + 1 == len(runs) or runs[i + 1][0] != n:
+            line = {"model": f"tfim{n}", "h": 1.0, "dim": 1 << n,
+                    "entry": "eigensolver.exact_fullspace_ground_state",
+                    "exact": exact, "routes": routes}
+            if record:
+                line["record"] = record
+            emit(f"tfim{n}", line)
+    if cuda and min(out["by_path"].values()) <= 0:
+        raise RuntimeError(f"a full-space path never launched the ELL "
+                           f"kernel: {out['by_path']}")
+    if cuda:
+        # the kernel at both identity tables, outside the count; the
+        # solver has freed its own
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        for n in ed_sites:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            tables = _build_fullspace_ell_device(tfim(n))
+            sync()
+            out["rows"] += ell_rows(f"tfim{n}_fullspace", *tables, gen,
+                                    time.perf_counter() - t0, reps=10)
+            del tables
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_input_n2_ccpvdz(device="cuda"):
     """The card's cap states of N2/cc-pVDZ restricted SKQD, made as
     ``phase_restricted`` makes them: one Selected-CI round of 600 from HF,
@@ -4238,8 +4524,69 @@ def main_validation_only():
         "count": torch.cuda.device_count()}}))
 
 
+def main_spin_frontier_only():
+    """``python3 chip_smoke.py --only spin_frontier``: the build and
+    ``phase_spin_frontier`` alone; its launches and kernel rows are
+    printed before the result line."""
+    import torch
+    phase_device()
+    phase_build()
+    out = phase_spin_frontier()
+    print(json.dumps({"spin_frontier_by_path": out["by_path"],
+                      "spin_frontier_sweep_by_path": out["sweep_by_path"],
+                      "rows": out["rows"], "sweep_rows": out["sweep_rows"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main_fullspace_refined_only():
+    """``python3 chip_smoke.py --only fullspace_refined``: the build, then
+    the lattice CLI's ``--system large --model tfim --exact-full --h 1.0``
+    at 25 and 26 spins (``run_exact_fullspace``: the device stage and the
+    host f64 refine), each after its cached energy is removed.  One
+    ``refined fullspace tfim<n>:`` line each: the CLI's record with its
+    wall, ELL launches and the allocator's peak, beside the JAX record;
+    each refined energy held to the free-fermion energy at
+    ``REFINED_TOL``."""
+    import torch
+    from flow_guided_krylov_torch.examples import \
+        skqd_lattice_validation as lat
+    from flow_guided_krylov_torch.ops import ell_spmv as ell
+    from flow_guided_krylov_torch.postprocessing.eigensolver import \
+        _fullspace_cache_path
+    phase_device()
+    phase_build()
+    for n, record in SPIN_FRONTIER_FULLSPACE.items():
+        _fullspace_cache_path(
+            lat.make_hamiltonian("tfim", n, 1.0)[0]).unlink(missing_ok=True)
+        torch.cuda.reset_peak_memory_stats()
+        before = ell.ell_spmv_cuda.launches
+        t0 = time.perf_counter()
+        cli = lat.run_exact_fullspace("tfim", n, 1.0)
+        torch.cuda.synchronize()
+        res = dict(cli, wall_s=time.perf_counter() - t0,
+                   ell_launches=ell.ell_spmv_cuda.launches - before,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   record=record)
+        print(f"refined fullspace tfim{n}: " + json.dumps(res))
+        if cli["oracle"] != "free-fermion" or cli["cached"]:
+            raise RuntimeError(f"run_exact_fullspace: {cli}")
+        if not abs(cli["energy"] - record["exact"]) < REFINED_TOL:
+            raise RuntimeError(f"TFIM-{n} refined {cli['energy']} vs "
+                               f"{record['exact']} (tolerance "
+                               f"{REFINED_TOL})")
+        if res["ell_launches"] <= 0:
+            raise RuntimeError(f"TFIM-{n} never launched the ELL kernel")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 ONLY = {"mesh": main_mesh_only, "headline": main_headline_only,
-        "validation": main_validation_only}
+        "validation": main_validation_only,
+        "spin_frontier": main_spin_frontier_only,
+        "fullspace_refined": main_fullspace_refined_only}
 
 
 def main():
@@ -4294,9 +4641,11 @@ def main():
     # energies on disk
     timed(phase_headline)
     val = timed(phase_validation)
+    frontier = timed(phase_spin_frontier)
     print("phase walls (s): " + json.dumps(walls))
     rows += (sector["rows"] + restricted["rows"] + eigen["rows"]
-             + w4["rows"] + mesh["rows"] + val["rows"])
+             + w4["rows"] + mesh["rows"] + val["rows"] + frontier["rows"])
+    sweep_rows += frontier["sweep_rows"]
     # paths named by the function that drove them: the CLIs' own
     # (flow_guided_krylov_torch/examples/) and the smoke's hand-driven ones
     lattice = "skqd_lattice_validation."
@@ -4314,6 +4663,7 @@ def main():
                "skqd_validation.run_631g(h2o)": val["launches"]}
     by_path.update({k: v for k, v in mesh["by_path"].items()
                     if "row blocks" in k})
+    by_path.update(frontier["by_path"])
     if min(by_path.values()) <= 0:
         raise RuntimeError(f"a path never launched the ELL kernel: {by_path}")
     sweep_by_path = {
@@ -4322,6 +4672,7 @@ def main():
             spin_pipe["tfim"]["kernel_launches"]["x_sweep"]}
     sweep_by_path.update({k: v for k, v in mesh["by_path"].items()
                           if "trotter" in k})
+    sweep_by_path.update(frontier["sweep_by_path"])
     if min(sweep_by_path.values()) <= 0:
         raise RuntimeError(f"a path never launched x_sweep: {sweep_by_path}")
     main_row = next(r for r in rows if r["table"] == "n2" and r["B"] == 2
@@ -4362,7 +4713,11 @@ def main():
         "bound_ms": low["bound_ms"], "bound_by": low["bound_by"],
         "bound_share": low["bound_share"], "library_ms": None,
         "gathered_ms": high["ms"], "gathered_device_ms": high["device_ms"],
-        "gathered_bound_ms": high["bound_ms"]}]}
+        "gathered_bound_ms": high["bound_ms"],
+        "other_shapes": [{k: r[k] for k in (
+            "n", "words", "n_words", "tile_bits", "reverse", "launches",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_share",
+            "device_bound_share")} for r in sweep_rows]}]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -459,6 +459,33 @@ def _fullspace_cache_path(ham):
     return root / f"torch_fullspace_{hsh.hexdigest()}.txt"
 
 
+def _fullspace_plan(n_sites: int, n_connections: int, total_bytes: int,
+                    m: int = 120) -> dict:
+    """Route and Lanczos depth of :func:`exact_fullspace_ground_state` for
+    2^n_sites states of ``n_connections`` flips on a device of
+    ``total_bytes``: ``ell-fused`` (depth ``MemoryBudget.lanczos_ell_m``,
+    restarts up to ``m`` steps) when the identity tables, a GiB and ten
+    vectors fit 85 % of memory; ``flip-stepped`` (m = 40, at least three
+    restarts) when six vectors fit half of it; MemoryError otherwise.
+    Memory alone picks the route."""
+    from ..utils.memory import MemoryBudget
+    dim = 1 << int(n_sites)
+    C = int(n_connections)
+    tables_bytes = 2 * C * dim * 4 + dim * 4
+    if tables_bytes + (1 << 30) + 10 * dim * 4 <= 0.85 * total_bytes:
+        m_fit = MemoryBudget(total_bytes).lanczos_ell_m(dim, C, m_max=m)
+        return {"route": "ell-fused", "lanczos_m": min(m_fit, dim),
+                "restarts": max(1, -(-m // m_fit))}
+    # table-free flip route: about six float32 N-vectors live
+    if 6 * 4 * dim <= 0.5 * total_bytes:
+        return {"route": "flip-stepped", "lanczos_m": min(40, dim),
+                "restarts": max(3, -(-m // 40))}
+    raise MemoryError(
+        f"full 2^{n_sites} ELL tables ({tables_bytes / 2**30:.1f} GiB at "
+        f"C={C}) exceed the memory budget ({total_bytes / 2**30:.0f} GiB) "
+        "and the table-free route does not fit either")
+
+
 def exact_fullspace_ground_state(ham, m: int = 120, refine_host: bool = True,
                                  tol: float = 1e-9, verbose: bool = True,
                                  use_cache: bool = True) -> dict:
@@ -478,23 +505,15 @@ def exact_fullspace_ground_state(ham, m: int = 120, refine_host: bool = True,
        independent of the packed connections, so the refined energy also
        checks the device Hamiltonian.
     """
-    from ..utils.memory import MemoryBudget, device_memory_bytes
+    from ..utils.memory import device_memory_bytes
 
     n = int(ham.n_sites)
     dim = 1 << n
     C = int(ham.n_connections)
     dev = ham.device
-    tables_bytes = 2 * C * dim * 4 + dim * 4
-    total = device_memory_bytes(dev)
-    tables_fit = tables_bytes + (1 << 30) + 10 * dim * 4 <= 0.85 * total
-    # table-free flip route: about six float32 N-vectors live
-    flip_ok = 6 * 4 * dim <= 0.5 * total
-    if not tables_fit and not flip_ok:
-        raise MemoryError(
-            f"full 2^{n} ELL tables ({tables_bytes / 2**30:.1f} GiB at "
-            f"C={C}) exceed the memory budget ({total / 2**30:.0f} GiB) "
-            "and the table-free route does not fit either")
-    route = "ell-fused" if tables_fit else "flip-stepped"
+    plan = _fullspace_plan(n, C, device_memory_bytes(dev), m)
+    route, lanczos_m, restarts = (plan["route"], plan["lanczos_m"],
+                                  plan["restarts"])
 
     path = _fullspace_cache_path(ham)
     if use_cache and refine_host:
@@ -515,8 +534,6 @@ def exact_fullspace_ground_state(ham, m: int = 120, refine_host: bool = True,
         sync()
         wall_build = time.time() - t0
         t0 = time.time()
-        lanczos_m = min(40, dim)
-        restarts = max(3, -(-m // 40))
         e_dev, v_host = lanczos_ground_state_stepped(
             lambda v: ham.apply_statevector(v, diag_dev), dim, m=lanczos_m,
             v0=v0, restarts=restarts, verbose=verbose, device=dev)
@@ -527,9 +544,6 @@ def exact_fullspace_ground_state(ham, m: int = 120, refine_host: bool = True,
         sync()
         wall_build = time.time() - t0
         t0 = time.time()
-        m_fit = MemoryBudget.for_device(dev).lanczos_ell_m(dim, C, m_max=m)
-        lanczos_m = min(m_fit, dim)
-        restarts = max(1, -(-m // m_fit))
         e_dev, v = lanczos_ground_state_ell(
             diag, elems, tgt, m=lanczos_m,
             v0=torch.as_tensor(v0, device=dev), restarts=restarts)
