@@ -47,6 +47,7 @@ from ..ops.bits import (keys_device, to_device, to_host, unkey_device,
                         unpack_device)
 from ..parallel.mesh import canonical
 from ..parallel.mesh import to as mesh_to
+from ..utils.profiling import span
 from ..utils.system_scaler import AdaptiveAdjuster
 
 __all__ = ["PhysicsGuidedConfig", "PhysicsGuidedFlowTrainer",
@@ -468,11 +469,12 @@ class PhysicsGuidedFlowTrainer:
 
     def _accumulated_energy(self) -> float:
         """Ground-state energy in the accumulated basis (host f64)."""
-        basis = self.accumulated_basis
-        if basis is None or not len(basis):
-            return float("inf")
-        vals, _ = self.h.exact_ground_state(basis)
-        return float(vals[0])
+        with span("stage1.accumulated_energy"):
+            basis = self.accumulated_basis
+            if basis is None or not len(basis):
+                return float("inf")
+            vals, _ = self.h.exact_ground_state(basis)
+            return float(vals[0])
 
     # ------------------------------------------------------------------
     # Training loop

@@ -17,10 +17,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
-import scipy.sparse.linalg as spla
 import torch
 
 from ..ops.bits import _SIGN_FLIP, join2, keys_device, split2, unkey_device
+from ..utils.profiling import counted_eigsh
 
 __all__ = ["Hamiltonian", "PauliString", "lex_order"]
 
@@ -334,7 +334,7 @@ class Hamiltonian(ABC):
         M = (M + M.T) * 0.5
         if v0 is not None and len(v0) != B:
             v0 = None
-        vals, vecs = spla.eigsh(M, k=max(k, 2), which="SA", v0=v0)
+        vals, vecs = counted_eigsh(M, k=max(k, 2), which="SA", v0=v0)
         idx = np.argsort(vals)
         return vals[idx][:k], vecs[:, idx][:, :k]
 

@@ -50,6 +50,7 @@ from ..hamiltonians.spin import extract_coeffs_and_paulis
 from ..ops.bits import _parity32, to_device
 from ..ops.ell_spmv import ell_spmv
 from ..ops.x_sweep import TILE_BITS, _pauli_masks, make_gathered_sweeps
+from ..utils.profiling import counted_eigsh, span
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
@@ -529,8 +530,12 @@ class SampleBasedKrylovDiagonalization:
         the words.  When every word is low, this is the JAX package's
         fused substep; otherwise it is its ``FGK_PALLAS_SWEEP`` order.
         """
-        if self._trotter is not None:
-            return self._trotter
+        if self._trotter is None:
+            with span("skqd.trotter_build", sync=True):
+                self._trotter = self._build_trotter_ops()
+        return self._trotter
+
+    def _build_trotter_ops(self):
         coeffs, words = extract_coeffs_and_paulis(self.h)
         n = self.h.n_sites
         masks = [_pauli_masks(w) for w in words]
@@ -552,7 +557,6 @@ class SampleBasedKrylovDiagonalization:
                 return step(re, im, hr, hi)
 
             sharded.block_runs = step.block_runs
-            self._trotter = sharded
             return sharded
         seq = [(c * dt_sub / 2, xm, zm, ny) for c, xm, zm, ny in offd]
         sweeps = make_gathered_sweeps(n, seq + seq[::-1])
@@ -563,7 +567,6 @@ class SampleBasedKrylovDiagonalization:
             re, im = sweeps(re, im)
             return _diag_mul(re, im, hp_re, hp_im)
 
-        self._trotter = substep
         return substep
 
     def _sharded_statevector(self) -> bool:
@@ -575,9 +578,10 @@ class SampleBasedKrylovDiagonalization:
         """exp(-i dt H) on a device (re, im) statevector pair, in
         ``num_trotter_steps`` substeps; with a mesh the pair is two lists
         of blocks (``parallel.shard_statevector``)."""
-        substep = self._trotter_ops()
-        for _ in range(max(self.config.num_trotter_steps, 1)):
-            re, im = substep(re, im)
+        with span("skqd.evolve", sync=True):
+            substep = self._trotter_ops()
+            for _ in range(max(self.config.num_trotter_steps, 1)):
+                re, im = substep(re, im)
         return re, im
 
     # ------------------------------------------------------------------
@@ -807,15 +811,16 @@ class SampleBasedKrylovDiagonalization:
             re, im = shard_statevector(self.mesh, re, im)
         samples = []
         for k in range(c.max_krylov_dim):
-            u = torch.rand(c.shots_per_krylov, generator=self.generator,
-                           device=self.device)
-            # a sharded state is gathered to the first device to sample
-            full_re, full_im = (gather_statevector(self.mesh, re, im)
-                                if sharded else (re, im))
-            idx = _sample_idx_cdf(full_re ** 2 + full_im ** 2, u)
-            del full_re, full_im
-            vals, counts = torch.unique(idx, return_counts=True)
-            samples.append(dict(zip(vals.tolist(), counts.tolist())))
+            with span("skqd.sample"):
+                u = torch.rand(c.shots_per_krylov, generator=self.generator,
+                               device=self.device)
+                # a sharded state is gathered to the first device to sample
+                full_re, full_im = (gather_statevector(self.mesh, re, im)
+                                    if sharded else (re, im))
+                idx = _sample_idx_cdf(full_re ** 2 + full_im ** 2, u)
+                del full_re, full_im
+                vals, counts = torch.unique(idx, return_counts=True)
+                samples.append(dict(zip(vals.tolist(), counts.tolist())))
             if k < c.max_krylov_dim - 1:
                 re, im = self._evolve_trotter(re, im)
         return samples
@@ -825,15 +830,16 @@ class SampleBasedKrylovDiagonalization:
         """Running union of sampled configs per Krylov dimension."""
         seen: Dict[int, int] = {}
         bases = []
-        for counts in samples:
-            for idx, ct in counts.items():
-                seen[idx] = seen.get(idx, 0) + ct
-            idxs = np.sort(np.fromiter(seen.keys(), dtype=np.int64))
-            if self.subspace is None:
-                # Trotter mode: sampled indices are the packed configs
-                bases.append(idxs.astype(np.uint32)[:, None])
-            else:
-                bases.append(self.subspace[idxs])
+        with span("skqd.basis"):
+            for counts in samples:
+                for idx, ct in counts.items():
+                    seen[idx] = seen.get(idx, 0) + ct
+                idxs = np.sort(np.fromiter(seen.keys(), dtype=np.int64))
+                if self.subspace is None:
+                    # Trotter mode: sampled indices are the packed configs
+                    bases.append(idxs.astype(np.uint32)[:, None])
+                else:
+                    bases.append(self.subspace[idxs])
         return bases
 
     # ------------------------------------------------------------------
@@ -869,11 +875,12 @@ class SampleBasedKrylovDiagonalization:
                 _, v = lanczos_ground_state_ell(*ell, m=min(m_fit, nb))
                 v0 = v.double().cpu().numpy()
                 del ell, v
-            M = self.h.to_sparse(basis)
-            M = (M + M.T) * 0.5 + reg * sp.eye(nb)
+            with span("skqd.project"):
+                M = self.h.to_sparse(basis)
+                M = (M + M.T) * 0.5 + reg * sp.eye(nb)
             k = min(self.config.num_eigenvalues, nb - 1)
             try:
-                vals, vecs = spla.eigsh(M, k=max(k, 1), which="SA", v0=v0)
+                vals, vecs = counted_eigsh(M, k=max(k, 1), which="SA", v0=v0)
             except spla.ArpackNoConvergence:
                 vals, vecs = np.linalg.eigh(M.toarray())
             idx = np.argsort(vals)
@@ -882,7 +889,8 @@ class SampleBasedKrylovDiagonalization:
                 return e, vecs[:, idx][:, 0]
             return e
 
-        H = self.h.matrix_elements(basis, basis)
+        with span("skqd.project"):
+            H = self.h.matrix_elements(basis, basis)
         H = 0.5 * (H + H.T) + reg * np.eye(nb)
         cond = np.linalg.cond(H) if nb > 1 else 1.0
         if not np.isfinite(cond) or cond > 1e12:
@@ -979,13 +987,15 @@ class SampleBasedKrylovDiagonalization:
         """Energies against Krylov dimension on the cumulative bases.
         ``final_only`` skips the intermediate eigensolves (NaN in their
         place)."""
-        samples = self.generate_krylov_samples()
-        bases = self.build_cumulative_basis(samples)
-        if final_only:
-            energies = [np.nan] * (len(bases) - 1) + [
-                self.compute_ground_state_energy(bases[-1])]
-        else:
-            energies = [self.compute_ground_state_energy(b) for b in bases]
+        with span("skqd.run"):
+            samples = self.generate_krylov_samples()
+            bases = self.build_cumulative_basis(samples)
+            if final_only:
+                energies = [np.nan] * (len(bases) - 1) + [
+                    self.compute_ground_state_energy(bases[-1])]
+            else:
+                energies = [self.compute_ground_state_energy(b)
+                            for b in bases]
         return {
             "energies": energies,
             "basis_sizes": [len(b) for b in bases],
