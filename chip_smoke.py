@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only validation # the build and phase_validation
     python3 chip_smoke.py --only spin_frontier      # phase_spin_frontier
     python3 chip_smoke.py --only fullspace_refined  # TFIM-25/26 refined
+    python3 chip_smoke.py --only half_phase # the build and phase_half_phase
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout (one ``nvcc`` per source, started together), holds each against
@@ -170,6 +171,11 @@ statevector):
    ``--only fullspace_refined`` runs the lattice CLI's refined
    ``--exact-full`` at 25 and 26 spins (host f64 refine, minutes each),
    which the whole run leaves out.
+17. the Trotter substep's half-phase inside the x_sweep launches
+   (``phase_half_phase``, ``--only half_phase``): at TFIM-28 the class
+   build beside the 2^n tables it replaces, each launch of the substep
+   with and without its half-phase, and a substep and an evolve beside
+   the chain of tables, held to it bit for bit.
 
 Kernel times are medians over CUDA-event windows: ``ms`` of one launch a
 window (the host's launch gap included), ``device_ms`` of launches back to
@@ -623,6 +629,126 @@ def phase_sweep_parts(n=24):
             "words": name, "n": n, "phases": phases, "max_abs_err": err,
             "device_ms": device_ms, "bound_ms": bound_ms,
             "device_bound_share": bound_ms / device_ms}))
+
+
+def phase_half_phase(n=28):
+    """The Trotter substep's half-phase inside the x_sweep launches, on
+    TFIM-n (h = 0.5, dt = 0.1 in 8 substeps) and 2^n random amplitudes:
+    the class build (synchronized wall, median of 3) beside the 2^n
+    tables of ``_half_phase`` it replaces, each with the allocator's peak
+    above what was held before; each launch of the substep without and
+    with its half-phase (``ms``, ``device_ms``) beside its plain version
+    with the same phase (``plain_ms``, ``x_sweep_reference``) and the
+    bound of one read and one write of the pair; one substep and one
+    evolve (8 substeps) through the fused launches beside the chain of
+    tables.
+    The fused substep equals the chain bit for bit.  One ``half_phase:``
+    line each."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_torch.hamiltonians.spin import \
+        extract_coeffs_and_paulis
+    from flow_guided_krylov_torch.krylov import skqd
+    from flow_guided_krylov_torch.ops import x_sweep as xs
+
+    def emit(row):
+        print("half_phase: " + json.dumps(row), flush=True)
+
+    s = skqd.SampleBasedKrylovDiagonalization(
+        TransverseFieldIsing(n, h=0.5, device="cuda"),
+        skqd.SKQDConfig(evolution="trotter"),
+        initial_state=np.array([0], np.uint32))
+    coeffs, words = extract_coeffs_and_paulis(s.h)
+    masks = [xs._pauli_masks(w) for w in words]
+    diag = [(c, m[1]) for c, m in zip(coeffs, masks) if m[0] == 0]
+    dt = s.config.time_step / s.config.num_trotter_steps
+
+    def wall_and_peak(fn, reps):
+        walls, peak = [], 0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            del out
+        return statistics.median(walls), peak
+
+    for name, fn in (("class build", lambda: xs.half_phase_classes(
+            diag, n, dt, "cuda")), ("2^n tables", lambda: skqd._half_phase(
+                diag, n, dt, "cuda"))):
+        wall, peak = wall_and_peak(fn, 3)
+        emit({"n": n, "what": name, "wall_ms": 1e3 * wall,
+              "peak_gb": peak / 1e9})
+    phase = xs.half_phase_classes(diag, n, dt, "cuda")
+    hr, hi = skqd._half_phase(diag, n, dt, "cuda")
+    emit({"n": n, "classes": phase.table.shape[0]})
+    plans = []
+    gathered = skqd.make_gathered_sweeps
+
+    def record_plan(n_qubits, ws, *args, **kw):
+        plans.append(xs.plan_sweeps(ws, n_qubits, *args, **kw))
+        return gathered(n_qubits, ws, *args, **kw)
+
+    with mock.patch.object(skqd, "make_gathered_sweeps", record_plan):
+        fused = s._trotter_ops()
+    launch_words = [ws for _, ws in plans[0]]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    re = torch.randn(1 << n, generator=gen, device="cuda")
+    im = torch.randn(1 << n, generator=gen, device="cuda")
+    bound_ms, _ = bound(16.0 * (1 << n), 0.0)
+    for i, part in enumerate(fused.parts):
+        bare = getattr(part, "func", part)
+        at = part.keywords["at"] if hasattr(part, "keywords") else 0
+        variants = [(0, bare)] + ([(at, part)] if at else [])
+        for side, fn in variants:
+            ms = _median_ms(lambda: fn(re, im), 20)
+            device_ms = _median_ms(lambda: fn(re, im), 10, 5)
+            plain_ms = _median_ms(lambda: xs.x_sweep_reference(
+                re, im, launch_words[i], n, phase, side), 3)
+            emit({"n": n, "launch": i, "at": side,
+                  "n_words": len(launch_words[i]), "ms": ms,
+                  "device_ms": device_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms,
+                  "device_bound_share": bound_ms / device_ms})
+    bare = [getattr(p, "func", p) for p in fused.parts]
+
+    def chain():
+        r, i = skqd._diag_mul(re, im, hr, hi)
+        for step in bare:
+            r, i = step(r, i)
+        return skqd._diag_mul(r, i, hr, hi)
+
+    got, want = fused(re, im), chain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("fused substep differs from the chain")
+    del got, want
+
+    def chain_evolve():
+        r, i = re, im
+        for _ in range(s.config.num_trotter_steps):
+            r, i = skqd._diag_mul(r, i, hr, hi)
+            for step in bare:
+                r, i = step(r, i)
+            r, i = skqd._diag_mul(r, i, hr, hi)
+        return r, i
+
+    for name, fn in (("fused substep", lambda: fused(re, im)),
+                     ("chain substep", chain),
+                     ("diag_mul", lambda: skqd._diag_mul(re, im, hr, hi)),
+                     ("fused evolve", lambda: s._evolve_trotter(re, im)),
+                     ("chain evolve", chain_evolve)):
+        emit({"n": n, "what": name, "ms": _median_ms(fn, 5),
+              "device_ms": _median_ms(fn, 3, 2)})
+    del re, im, hr, hi, phase
+    torch.cuda.empty_cache()
 
 
 def stage3(h, fci, use_device_scoring):
@@ -4583,10 +4709,23 @@ def main_fullspace_refined_only():
         "count": torch.cuda.device_count()}}))
 
 
+def main_half_phase_only():
+    """``python3 chip_smoke.py --only half_phase``: the build and
+    ``phase_half_phase`` alone."""
+    import torch
+    phase_device()
+    phase_build()
+    phase_half_phase()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 ONLY = {"mesh": main_mesh_only, "headline": main_headline_only,
         "validation": main_validation_only,
         "spin_frontier": main_spin_frontier_only,
-        "fullspace_refined": main_fullspace_refined_only}
+        "fullspace_refined": main_fullspace_refined_only,
+        "half_phase": main_half_phase_only}
 
 
 def main():
@@ -4617,6 +4756,7 @@ def main():
     rows = timed(phase_kernel)
     sweep_rows = timed(phase_x_sweep)
     timed(phase_sweep_parts)
+    timed(phase_half_phase)
     n2 = timed(phase_slice)
     # 100 of the tier's 600 epochs, the mesh's depth: phase_headline runs
     # N2's four stages at all 600, so this run serves the checkpoints,

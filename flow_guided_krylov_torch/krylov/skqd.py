@@ -36,6 +36,7 @@ does not fit, raises.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from math import comb
 from typing import Dict, List, Optional, Tuple
@@ -47,10 +48,13 @@ import torch
 
 from ..hamiltonians.base import Hamiltonian, _KeyIndex
 from ..hamiltonians.spin import extract_coeffs_and_paulis
-from ..ops.bits import _parity32, to_device
+from ..ops.bits import to_device
 from ..ops.ell_spmv import ell_spmv
-from ..ops.x_sweep import TILE_BITS, _pauli_masks, make_gathered_sweeps
-from ..utils.profiling import counted_eigsh, span
+from ..ops.x_sweep import (PHASE_LOAD, PHASE_STORE, TILE_BITS, _pauli_masks,
+                           half_phase_angles, half_phase_classes,
+                           make_gathered_sweeps, phase_table)
+from ..ops.x_sweep import diag_mul as _diag_mul
+from ..utils.profiling import count, counted_eigsh, span
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
@@ -318,23 +322,41 @@ def _half_phase(diag: List[Tuple[float, int]], n: int, dt_sub: float,
     float32, as for the rotation angles (``ops/x_sweep._cos_sin_f32``).
     The phase is then the same on every device, so a Trotter evolve on
     the card equals the plain one on the CPU bit for bit, and no
-    library's float32 ``cos`` enters it."""
-    idx = torch.arange(1 << n, dtype=torch.int64, device=device)
-    D = torch.zeros(1 << n, dtype=torch.float32, device=device)
-    for c, zm in diag:
-        sign = 1.0 - 2.0 * _parity32(idx & zm).to(torch.float32)
-        D = D + float(np.float32(c)) * sign
-    ang, where = torch.unique(0.5 * dt_sub * D, return_inverse=True)
-    ang = ang.double().cpu().numpy()
-    cos = torch.as_tensor(np.cos(ang).astype(np.float32), device=device)
-    sin = torch.as_tensor(np.sin(ang).astype(np.float32), device=device)
-    return cos[where], -sin[where]
+    library's float32 ``cos`` enters it.  On a card the substep takes the
+    same phase in compact form (``ops/x_sweep.half_phase_classes``) unless
+    it has too many distinct angles."""
+    ang, where = torch.unique(half_phase_angles(diag, n, dt_sub, device),
+                              return_inverse=True)
+    table = phase_table(ang.cpu().numpy(), device)
+    return table[:, 0][where], table[:, 1][where]
 
 
-def _diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
-              hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(re + i im) * (hr + i hi), elementwise."""
-    return re * hr - im * hi, re * hi + im * hr
+def _fuses_half_phase(device) -> bool:
+    """Whether a Trotter substep applies its half-phase inside its first
+    and last sweep launches: on a card.  On the CPU it stays the plain
+    chain of :func:`_half_phase` tables and :func:`_diag_mul`."""
+    return torch.device(device).type == "cuda"
+
+
+def _fused_substep(steps, phase):
+    """diag . sweeps . diag with the leading half-phase inside the first
+    launch and the trailing one inside the last: two half-phase products,
+    as the chain has, never one full-phase product.  ``parts`` lists the
+    launches, so an evolve runs them one by one."""
+    last = len(steps) - 1
+    parts = []
+    for i, step in enumerate(steps):
+        at = (PHASE_LOAD if i == 0 else 0) | (PHASE_STORE if i == last else 0)
+        parts.append(functools.partial(step, phase=phase, at=at) if at
+                     else step)
+
+    def substep(re, im):
+        for part in parts:
+            re, im = part(re, im)
+        return re, im
+
+    substep.parts = parts
+    return substep
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +538,15 @@ class SampleBasedKrylovDiagonalization:
         words, built once: diag . sweep(seq) . sweep(reversed(seq)) . diag.
 
         * diag: every diagonal word (x_mask == 0) folds into one
-          half-phase exp(-i dt/2 * D), a (cos, -sin) float32 pair.
+          half-phase exp(-i dt/2 * D).  On a card it is a class index of
+          one byte a state and a (cos, -sin) table of the distinct
+          angles, applied inside the first sweep launch after its load
+          and inside the last before its store (``trotter.phase_classes``
+          counts the angles).  Past 256 distinct angles
+          (``trotter.phase_fallback``), and on the CPU,
+          it is a (cos, -sin) float32 pair of 2^n tables applied by
+          :func:`_diag_mul` around the sweeps.  Both round alike, so the
+          states are equal bit for bit.
         * seq: the off-diagonal words at half angle, first those whose
           x_mask lies inside the contiguous tile, 0 < x_mask <
           2^min(TILE_BITS, n) (low), then the others (high).  seq then
@@ -560,6 +590,12 @@ class SampleBasedKrylovDiagonalization:
             return sharded
         seq = [(c * dt_sub / 2, xm, zm, ny) for c, xm, zm, ny in offd]
         sweeps = make_gathered_sweeps(n, seq + seq[::-1])
+        if _fuses_half_phase(self.device) and sweeps.steps:
+            phase = half_phase_classes(diag, n, dt_sub, self.device)
+            if phase is not None:
+                count("trotter.phase_classes", phase.table.shape[0])
+                return _fused_substep(sweeps.steps, phase)
+            count("trotter.phase_fallback")
         hp_re, hp_im = _half_phase(diag, n, dt_sub, self.device)
 
         def substep(re, im):
@@ -580,8 +616,12 @@ class SampleBasedKrylovDiagonalization:
         of blocks (``parallel.shard_statevector``)."""
         with span("skqd.evolve", sync=True):
             substep = self._trotter_ops()
+            # launch by launch where the substep lists them, so that no
+            # frame here keeps a pair a launch has consumed
+            parts = getattr(substep, "parts", (substep,))
             for _ in range(max(self.config.num_trotter_steps, 1)):
-                re, im = substep(re, im)
+                for part in parts:
+                    re, im = part(re, im)
         return re, im
 
     # ------------------------------------------------------------------

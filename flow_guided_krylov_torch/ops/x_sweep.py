@@ -23,6 +23,12 @@ at any T positions (bits {0..3, 14..23} for TFIM-24's high words).
 * :func:`plan_sweeps` / :func:`make_gathered_sweeps` — cut an ordered word
   list into consecutive groups, each inside one gathered tile, and sweep
   them one launch a group.  Word order is never changed.
+* :func:`half_phase_classes` — the Trotter substep's diagonal half-phase
+  exp(-i dt/2 D) as a :class:`HalfPhase`: each state's class (one byte,
+  up to 256 distinct angles) and each class's (cos, -sin).
+  A sweep launch applies it after its load or before its store
+  (``phase``, ``at``), with :func:`diag_mul`'s rounding, so the product
+  equals the plain chain's bit for bit.
 
 The JAX package routes its sweep only on a TPU and only when an
 environment switch asks for it, because there each XOR became a
@@ -36,18 +42,22 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..utils.build import build_library, find_nvcc
+from ..utils.profiling import count
 from .bits import _parity32
 
 __all__ = ["TILE_BITS", "MAX_TILE_BITS", "REG_BITS", "MAX_WORDS",
            "make_x_sweep", "make_gathered_sweeps", "plan_sweeps",
            "sweep_table", "x_sweep_reference", "x_sweep_cuda", "word_table",
-           "KERNEL_SOURCE"]
+           "KERNEL_SOURCE", "HalfPhase", "MAX_PHASE_CLASSES", "PHASE_LOAD",
+           "PHASE_STORE", "diag_mul", "half_phase_angles", "phase_table",
+           "half_phase_classes", "half_phase_classes_reference",
+           "half_phase_classes_cuda", "apply_half_phase"]
 
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "x_sweep.cu")
@@ -65,6 +75,15 @@ REG_BITS = 4
 LOW_BITS = 4
 # word records one launch takes (the kernel stages them in shared memory)
 MAX_WORDS = 1024
+# distinct half-phase angles a class index holds, one byte a state; past
+# it the Trotter substep keeps 2^n phase tables
+MAX_PHASE_CLASSES = 256
+# slots of the class build's device-wide set of angles, and the diagonal
+# words its kernels stage a block
+PHASE_SET_SLOTS = 1 << 12
+MAX_DIAG_WORDS = 2048
+# the ends of a sweep launch that apply the half-phase
+PHASE_LOAD, PHASE_STORE = 1, 2
 
 Word = Tuple[float, int, int, int]           # (theta, x_mask, z_mask, n_y)
 
@@ -127,13 +146,134 @@ def _pauli_rotation_pair(re: torch.Tensor, im: torch.Tensor, theta: float,
 _pauli_rotation_pair.cuda_calls = 0
 
 
+class HalfPhase(NamedTuple):
+    """exp(-i dt/2 D) over 2^n states: ``cls`` (2^n,) uint8, each state's
+    class; ``table`` (C, 2) float32, the (cos, -sin) of each class's
+    angle, classes in ascending angle."""
+    cls: torch.Tensor
+    table: torch.Tensor
+
+
+def diag_mul(re: torch.Tensor, im: torch.Tensor, hr: torch.Tensor,
+             hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re + i im) * (hr + i hi), elementwise."""
+    return re * hr - im * hi, re * hi + im * hr
+
+
+def apply_half_phase(re: torch.Tensor, im: torch.Tensor, phase: HalfPhase
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`diag_mul` by each state's (cos, -sin), in plain torch."""
+    h = phase.table[phase.cls.long()]
+    return diag_mul(re, im, h[:, 0], h[:, 1])
+
+
 def x_sweep_reference(re: torch.Tensor, im: torch.Tensor,
-                      words: Sequence[Word], n_qubits: int
+                      words: Sequence[Word], n_qubits: int,
+                      phase: Optional[HalfPhase] = None, at: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The words applied one after another, in the order given."""
+    """The words applied one after another, in the order given; with
+    ``phase``, the half-phase before them (``at & PHASE_LOAD``) and after
+    them (``at & PHASE_STORE``)."""
+    if at & PHASE_LOAD:
+        re, im = apply_half_phase(re, im, phase)
     for theta, xm, zm, ny in words:
         re, im = _pauli_rotation_pair(re, im, theta, xm, zm, ny, n_qubits)
+    if at & PHASE_STORE:
+        re, im = apply_half_phase(re, im, phase)
     return re, im
+
+
+def half_phase_angles(diag: Sequence[Tuple[float, int]], n_qubits: int,
+                      dt_sub: float, device) -> torch.Tensor:
+    """The float32 half-phase angle dt_sub/2 * D of each of the 2^n
+    states, D = sum_w c_w (-1)^popcount(k & z_w) over the diagonal words
+    (c_w, z_w), summed in float32 in word order."""
+    idx = torch.arange(1 << n_qubits, dtype=torch.int64, device=device)
+    D = torch.zeros(1 << n_qubits, dtype=torch.float32, device=device)
+    for c, zm in diag:
+        sign = 1.0 - 2.0 * _parity32(idx & zm).to(torch.float32)
+        D = D + float(np.float32(c)) * sign
+    return 0.5 * dt_sub * D
+
+
+def phase_table(angles: np.ndarray, device) -> torch.Tensor:
+    """(C, 2) float32 (cos, -sin) of float32 ``angles``, each taken in
+    float64 on the host and rounded to float32 (as :func:`_cos_sin_f32`),
+    so no library's float32 ``cos`` enters the phase."""
+    ang = np.asarray(angles, np.float32).astype(np.float64)
+    table = np.stack([np.cos(ang), -np.sin(ang)], 1).astype(np.float32)
+    return torch.as_tensor(table, device=device)
+
+
+def half_phase_classes_reference(diag: Sequence[Tuple[float, int]],
+                                 n_qubits: int, dt_sub: float, device="cpu"
+                                 ) -> Optional[HalfPhase]:
+    """The plain class build: :func:`half_phase_angles`, their distinct
+    values in ascending order and each state's index among them.  None
+    past MAX_PHASE_CLASSES distinct angles, for a NaN angle, or past
+    MAX_DIAG_WORDS diagonal words, where the kernels refuse too."""
+    if len(diag) > MAX_DIAG_WORDS:
+        return None
+    ang, where = torch.unique(half_phase_angles(diag, n_qubits, dt_sub,
+                                                device), return_inverse=True)
+    if len(ang) > MAX_PHASE_CLASSES or bool(torch.isnan(ang).any()):
+        return None
+    return HalfPhase(where.to(torch.uint8),
+                     phase_table(ang.cpu().numpy(), device))
+
+
+def half_phase_classes_cuda(diag: Sequence[Tuple[float, int]],
+                            n_qubits: int, dt_sub: float, device
+                            ) -> Optional[HalfPhase]:
+    """The class build on a card, in two kernel passes over the states
+    (``csrc/x_sweep.cu``): their distinct angles into a bounded set, then
+    each state's class.  Nothing of 2^n size is allocated but the class
+    index.  None where :func:`half_phase_classes_reference` gives None."""
+    if len(diag) > MAX_DIAG_WORDS:
+        return None
+    dev = torch.device(device)
+    records = np.zeros((len(diag), 2), np.int32)
+    records[:, 0] = np.array([c for c, _ in diag], np.float32).view(np.int32)
+    records[:, 1] = [zm for _, zm in diag]
+    rec = torch.as_tensor(records, device=dev)
+    half_dt = ctypes.c_float(float(np.float32(0.5 * dt_sub)))
+    slots = torch.full((PHASE_SET_SLOTS,), -1, dtype=torch.int32, device=dev)
+    state = torch.zeros(2, dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _checked("class build, pass 1", lib.fgk_phase_collect(
+            rec.data_ptr(), len(diag), n_qubits, half_dt, slots.data_ptr(),
+            PHASE_SET_SLOTS, state.data_ptr(), MAX_PHASE_CLASSES, stream))
+        found, flags = state.tolist()
+        if flags or found > MAX_PHASE_CLASSES:
+            return None
+        keys = slots.cpu().numpy()
+        keys = np.sort(keys[keys != -1].view(np.float32))
+        if len(keys) != found:
+            raise RuntimeError(f"class build: {len(keys)} angles in the set, "
+                               f"{found} counted")
+        cls = torch.empty(1 << n_qubits, dtype=torch.uint8, device=dev)
+        _checked("class build, pass 2", lib.fgk_phase_classify(
+            rec.data_ptr(), len(diag), n_qubits, half_dt,
+            torch.as_tensor(keys, device=dev).data_ptr(), len(keys),
+            cls.data_ptr(), state.data_ptr(), stream))
+        if state[1].item():
+            raise RuntimeError("class build: a state's angle is not among "
+                               "the distinct angles of pass 1")
+    return HalfPhase(cls, phase_table(keys, dev))
+
+
+def half_phase_classes(diag: Sequence[Tuple[float, int]], n_qubits: int,
+                       dt_sub: float, device) -> Optional[HalfPhase]:
+    """exp(-i dt_sub/2 * D) as a :class:`HalfPhase`, built by the kernels
+    on a card and by the plain version on the CPU; equal on both, and
+    equal state by state to the (cos, -sin) pair of
+    ``krylov/skqd.py::_half_phase``.  None past MAX_PHASE_CLASSES distinct
+    angles: the caller keeps its tables."""
+    if torch.device(device).type == "cuda":
+        return half_phase_classes_cuda(diag, n_qubits, dt_sub, device)
+    return half_phase_classes_reference(diag, n_qubits, dt_sub, device)
 
 
 def word_table(words: Sequence[Word]) -> np.ndarray:
@@ -244,11 +384,25 @@ def _library() -> ctypes.CDLL:
     lib.fgk_x_sweep.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_uint, p]
     lib.fgk_x_sweep.restype = ctypes.c_int
+    i, f = ctypes.c_int, ctypes.c_float
+    lib.fgk_x_sweep_phase.argtypes = [p, p, p, p, p, i, i, ctypes.c_uint,
+                                      p, p, i, i, p]
+    lib.fgk_x_sweep_phase.restype = i
+    lib.fgk_phase_collect.argtypes = [p, i, i, f, p, ctypes.c_uint, p, i, p]
+    lib.fgk_phase_collect.restype = i
+    lib.fgk_phase_classify.argtypes = [p, i, i, f, p, i, p, p, p]
+    lib.fgk_phase_classify.restype = i
     return lib
 
 
+def _checked(what: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: cudaError {rc}")
+
+
 def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
-                 n_qubits: int, tile_bits: Union[int, Sequence[int]]
+                 n_qubits: int, tile_bits: Union[int, Sequence[int]],
+                 phase: Optional[HalfPhase] = None, at: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the current stream of ``re``'s device.
 
@@ -256,15 +410,29 @@ def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
     (2^n_qubits,), 16-byte aligned, and ``table`` int32 (W, 8) from
     :func:`sweep_table` for the same tile, W <= MAX_WORDS.  ``tile_bits``
     is a count T (the contiguous tile, bits 0..T-1) or the tile's bit
-    positions.
+    positions.  ``at`` (PHASE_LOAD, PHASE_STORE or both) applies
+    ``phase``, a :class:`HalfPhase` on the same device, after the load or
+    before the store; ``at = 0`` is the sweep alone.
     Returns new (re, im) tensors.
     """
     tmask = _tile_mask(tile_bits, n_qubits)
     dim = 1 << n_qubits
-    for name, t, dtype, shape in (("re", re, torch.float32, (dim,)),
-                                  ("im", im, torch.float32, (dim,)),
-                                  ("table", table, torch.int32,
-                                   (table.shape[0], 8))):
+    checks = [("re", re, torch.float32, (dim,)),
+              ("im", im, torch.float32, (dim,)),
+              ("table", table, torch.int32, (table.shape[0], 8))]
+    if at:
+        if at not in (PHASE_LOAD, PHASE_STORE, PHASE_LOAD | PHASE_STORE):
+            raise ValueError(f"at={at}: PHASE_LOAD, PHASE_STORE or both")
+        if phase is None:
+            raise ValueError(f"at={at} needs a phase")
+        classes = phase.table.shape[0]
+        if not 1 <= classes <= MAX_PHASE_CLASSES:
+            raise ValueError(f"phase of {classes} classes, past "
+                             f"{MAX_PHASE_CLASSES}")
+        checks += [("phase.cls", phase.cls, torch.uint8, (dim,)),
+                   ("phase.table", phase.table, torch.float32,
+                    (classes, 2))]
+    for name, t, dtype, shape in checks:
         if t.device != re.device or t.device.type != "cuda":
             raise ValueError(f"{name} must lie on re's CUDA device, "
                              f"got {t.device}")
@@ -282,14 +450,22 @@ def x_sweep_cuda(re: torch.Tensor, im: torch.Tensor, table: torch.Tensor,
     lib = _library()
     re_out = torch.empty_like(re)
     im_out = torch.empty_like(im)
+    args = (re.data_ptr(), im.data_ptr(), re_out.data_ptr(),
+            im_out.data_ptr(), table.data_ptr(), table.shape[0], n_qubits,
+            tmask)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        rc = lib.fgk_x_sweep(re.data_ptr(), im.data_ptr(), re_out.data_ptr(),
-                             im_out.data_ptr(), table.data_ptr(),
-                             table.shape[0], n_qubits, tmask, stream)
+        if at:
+            rc = lib.fgk_x_sweep_phase(
+                *args, phase.cls.data_ptr(), phase.table.data_ptr(),
+                phase.table.shape[0], at, stream)
+        else:
+            rc = lib.fgk_x_sweep(*args, stream)
     if rc != 0:
         raise RuntimeError(f"x_sweep kernel launch failed: cudaError {rc}")
     x_sweep_cuda.launches += 1
+    if at:
+        count("trotter.phase_launches")
     return re_out, im_out
 
 
@@ -298,23 +474,25 @@ x_sweep_cuda.launches = 0
 
 def _tile_sweep(n_qubits: int, seq: List[Word],
                 tile_bits: Union[int, Sequence[int]]) -> Callable:
-    """``(re, im) -> (re, im)`` applying ``seq`` in order inside one tile:
+    """``(re, im, phase=None, at=0) -> (re, im)`` applying ``seq`` in
+    order inside one tile, with the half-phase at the ends ``at`` names:
     the kernel on a CUDA tensor, the plain version on a CPU tensor.  The
     kernel's records are built here, so a tile or word the kernel cannot
     take raises on every device (:func:`sweep_table`)."""
     table = sweep_table(seq, n_qubits, tile_bits)
     on_device = {}
 
-    def sweep(re: torch.Tensor, im: torch.Tensor
+    def sweep(re: torch.Tensor, im: torch.Tensor,
+              phase: Optional[HalfPhase] = None, at: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         if re.device.type == "cuda":
             t = on_device.get(re.device)
             if t is None:
                 t = on_device[re.device] = torch.as_tensor(
                     table, device=re.device)
-            return x_sweep_cuda(re, im, t, n_qubits, tile_bits)
+            return x_sweep_cuda(re, im, t, n_qubits, tile_bits, phase, at)
         if re.device.type == "cpu":
-            return x_sweep_reference(re, im, seq, n_qubits)
+            return x_sweep_reference(re, im, seq, n_qubits, phase, at)
         raise ValueError(f"no x_sweep for device {re.device}")
 
     return sweep
@@ -383,7 +561,8 @@ def make_gathered_sweeps(n_qubits: int, words: Sequence[Word],
     """``(re, im) -> (re, im)`` applying ``words`` in order through the
     groups of :func:`plan_sweeps`: one kernel launch a group on a CUDA
     tensor, the plain version (the same chain of
-    :func:`_pauli_rotation_pair`) on a CPU tensor."""
+    :func:`_pauli_rotation_pair`) on a CPU tensor.  Its ``steps`` are the
+    groups' sweeps, each ``(re, im, phase=None, at=0) -> (re, im)``."""
     steps = [_tile_sweep(n_qubits, ws, tile)
              for tile, ws in plan_sweeps(words, n_qubits, tile_bits)]
 
@@ -393,4 +572,5 @@ def make_gathered_sweeps(n_qubits: int, words: Sequence[Word],
             re, im = step(re, im)
         return re, im
 
+    sweeps.steps = steps
     return sweeps

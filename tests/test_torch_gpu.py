@@ -320,6 +320,162 @@ def test_wide_words_and_small_states_match_plain(card, n):
                 assert float((g - w).abs().max()) == 0.0
 
 
+def _spin_skqd(model, n, device):
+    """TFIM-n (h = 0.5) or Heisenberg-n with a transverse field and a
+    longitudinal one on site 0 (the lattice CLI's two fields together),
+    in Trotter mode (dt = 0.1, 8 substeps), and its start state."""
+    from flow_guided_krylov_torch import krylov
+    from flow_guided_krylov_torch.hamiltonians import (HeisenbergHamiltonian,
+                                                       TransverseFieldIsing)
+    if model == "tfim":
+        h, start = TransverseFieldIsing(n, h=0.5, device=device), 0
+    else:
+        h_z = np.zeros(n)
+        h_z[0] = 0.1
+        h = HeisenbergHamiltonian(n, 1.0, 1.0, 1.0, h_x=np.full(n, 0.3),
+                                  h_z=h_z, device=device)
+        start = sum(1 << i for i in range(0, n, 2))
+    s = krylov.SampleBasedKrylovDiagonalization(
+        h, krylov.SKQDConfig(evolution="trotter"),
+        initial_state=np.array([start], np.uint32))
+    return s, start
+
+
+def _diag_words(s):
+    from flow_guided_krylov_torch.hamiltonians.spin import \
+        extract_coeffs_and_paulis
+    coeffs, words = extract_coeffs_and_paulis(s.h)
+    return [(c, xs._pauli_masks(w)[1]) for c, w in zip(coeffs, words)
+            if xs._pauli_masks(w)[0] == 0]
+
+
+@pytest.mark.parametrize("model", ["tfim", "heisenberg_field"])
+@pytest.mark.parametrize("n", [20, 24])
+def test_fused_half_phase_on_card_equals_the_card_chain(card, monkeypatch,
+                                                        n, model):
+    """An evolve whose half-phases ride in the first and last sweep
+    launches equals, bit for bit, the card's chain of 2^n tables
+    (``_diag_mul`` -> sweeps -> ``_diag_mul``): TFIM and Heisenberg with
+    a field (words past the contiguous tile, the hoisted order).  The
+    card's class build equals the plain one, and one evolve counts
+    ``trotter.phase_launches`` = 2 x 8 substeps and the build's
+    classes."""
+    from torch.profiler import ProfilerActivity, profile
+    from flow_guided_krylov_torch.krylov import skqd as skqd_mod
+    from flow_guided_krylov_torch.utils import profiling
+    fused, start = _spin_skqd(model, n, "cuda")
+    diag = _diag_words(fused)
+    phase = xs.half_phase_classes(diag, n, 0.1 / 8, card)
+    plain = xs.half_phase_classes_reference(diag, n, 0.1 / 8, "cpu")
+    assert phase.cls.dtype == plain.cls.dtype == torch.uint8
+    assert phase.table.shape[0] == (n // 2 + 1 if model == "tfim" else 2 * n)
+    assert torch.equal(phase.cls.cpu(), plain.cls)
+    assert torch.equal(phase.table.cpu(), plain.table)
+    re = torch.zeros(1 << n, device=card)
+    re[start] = 1.0
+    im = torch.zeros_like(re)
+    before = xs.x_sweep_cuda.launches
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = fused._evolve_trotter(re, im)
+            torch.cuda.synchronize()
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+    assert xs.x_sweep_cuda.launches - before == 8 * len(fused._trotter.parts)
+    assert len(fused._trotter.parts) > 1
+    assert counters == {"trotter.phase_launches": 2 * 8,
+                        "trotter.phase_classes": phase.table.shape[0]}
+    monkeypatch.setattr(skqd_mod, "_fuses_half_phase", lambda device: False)
+    chain, _ = _spin_skqd(model, n, "cuda")
+    want = chain._evolve_trotter(re, im)
+    assert not hasattr(chain._trotter, "parts")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_phase_launches_on_card_equal_plain(card):
+    """Each launch variant against the plain version with the same phase,
+    bit for bit, at n = 20: the phase after the load, before the store
+    and both, with TFIM's and Heisenberg's classes, on a tile whose first
+    register vectors are bits 0 and 1 (16-byte moves) and on one without
+    them (4-byte moves); with ``at = 0`` the launch is the plain sweep."""
+    n = 20
+    gen = torch.Generator(device=card).manual_seed(7)
+    re = torch.randn(1 << n, generator=gen, device=card)
+    im = torch.randn(1 << n, generator=gen, device=card)
+    words = _mixed_words(n, 14)
+    phases = {}
+    for model in ("tfim", "heisenberg_field"):
+        s, _ = _spin_skqd(model, n, "cuda")
+        phases[model] = xs.half_phase_classes(_diag_words(s), n, 0.1 / 8,
+                                              card)
+    shifted = tuple(range(2, 16))
+    cases = [(words, 14), ([(0.1 * (q - 1), 1 << q, 0, 0) for q in shifted]
+                           + [(0.2, 0b1100, 0b1100, 2)], shifted)]
+    for seq, tile in cases:
+        table = torch.as_tensor(xs.sweep_table(seq, n, tile), device=card)
+        for phase in phases.values():
+            for at in (0, xs.PHASE_LOAD, xs.PHASE_STORE,
+                       xs.PHASE_LOAD | xs.PHASE_STORE):
+                got = xs.x_sweep_cuda(re, im, table, n, tile, phase, at)
+                want = xs.x_sweep_reference(re, im, seq, n, phase, at)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (tile, at,
+                                               phase.table.shape[0])
+
+
+def test_phase_build_on_card_falls_back_past_the_cap(card, monkeypatch):
+    """Distinct random longitudinal fields on 17 sites (131,024 angles):
+    the card's build gives None, as the plain one does; the cap lowered
+    refuses one class short of TFIM-20's 11."""
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    from flow_guided_krylov_torch.krylov.skqd import \
+        SampleBasedKrylovDiagonalization, SKQDConfig
+    n = 17
+    rng = np.random.default_rng(0)
+    h = HeisenbergHamiltonian(n, 1.0, 1.0, 1.0, h_x=np.full(n, 0.3),
+                              h_z=rng.uniform(-1, 1, n), device="cuda")
+    s = SampleBasedKrylovDiagonalization(
+        h, SKQDConfig(evolution="trotter"),
+        initial_state=np.array([0], np.uint32))
+    assert xs.half_phase_classes(_diag_words(s), n, 0.1 / 8, card) is None
+    assert not hasattr(s._trotter_ops(), "parts")
+    tfim, _ = _spin_skqd("tfim", 20, "cuda")
+    diag = _diag_words(tfim)
+    monkeypatch.setattr(xs, "MAX_PHASE_CLASSES", 10)
+    assert xs.half_phase_classes(diag, 20, 0.1 / 8, card) is None
+    monkeypatch.setattr(xs, "MAX_PHASE_CLASSES", 11)
+    assert xs.half_phase_classes(diag, 20, 0.1 / 8, card).table.shape \
+        == (11, 2)
+
+
+def test_fused_evolve_memory_on_card(card):
+    """n = 24: over a build and one evolve the allocator's peak, above
+    the start pair the caller holds, stays under the state pair a launch
+    reads, the pair it writes and the class index, and 5 %: no 2^n
+    table, no 2^n temporary of the build."""
+    n = 24
+    s, start = _spin_skqd("tfim", n, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    re = torch.zeros(1 << n, device=card)
+    re[start] = 1.0
+    im = torch.zeros_like(re)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = s._evolve_trotter(re, im)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    pair = 2 * 4 << n
+    assert s._trotter.parts and s._trotter.parts[0].keywords["phase"] \
+        .cls.dtype == torch.uint8
+    assert peak <= 1.05 * (2 * pair + (1 << n)), peak
+    del out
+
+
 def _stage1_trainer(h, device_kw=None):
     from flow_guided_krylov_torch.flows import (ParticleConservingFlow,
                                                 PhysicsGuidedConfig,

@@ -135,7 +135,19 @@ def _heisenberg_hx(n):
             sum(1 << i for i in range(0, n, 2)))
 
 
-JAX_MODELS = {"tfim": _tfim, "heisenberg_hx": _heisenberg_hx}
+def _heisenberg_field(n):
+    """The lattice CLI's two Heisenberg fields together: a uniform
+    transverse 0.3 and a longitudinal 0.1 on site 0 (2n half-phase
+    angles)."""
+    h_z = np.zeros(n)
+    h_z[0] = 0.1
+    return (jspin.HeisenbergHamiltonian(n, 1.0, 1.0, 1.0,
+                                        h_x=np.full(n, 0.3), h_z=h_z),
+            sum(1 << i for i in range(0, n, 2)))
+
+
+JAX_MODELS = {"tfim": _tfim, "heisenberg_hx": _heisenberg_hx,
+              "heisenberg_field": _heisenberg_field}
 
 
 def _skqd_pair(model, n):
@@ -244,6 +256,130 @@ def test_trotter_evolve_hoisted_order_matches_jax(hoisted_pair):
     pr, pi = ps._evolve_trotter(*_start_pair(ps, start))
     np.testing.assert_allclose(pr.numpy(), np.asarray(r), rtol=0, atol=1e-5)
     np.testing.assert_allclose(pi.numpy(), np.asarray(i), rtol=0, atol=1e-5)
+
+
+def _diag_words(ps):
+    from flow_guided_krylov_torch.hamiltonians.spin import \
+        extract_coeffs_and_paulis
+    coeffs, words = extract_coeffs_and_paulis(ps.h)
+    return [(c, xs._pauli_masks(w)[1]) for c, w in zip(coeffs, words)
+            if xs._pauli_masks(w)[0] == 0]
+
+
+def _port_skqd(model, n):
+    jh, start = JAX_MODELS[model](n)
+    s = skqd.SampleBasedKrylovDiagonalization(
+        spin_hamiltonian_from_jax(jh, "cpu"),
+        skqd.SKQDConfig(time_step=0.1, num_trotter_steps=8,
+                        evolution="trotter"),
+        initial_state=np.array([start], np.uint32))
+    return s, start
+
+
+@pytest.mark.parametrize("model,classes", [("heisenberg_field", 32),
+                                           ("tfim", 9)],
+                         ids=["heisenberg_field16", "tfim16"])
+def test_phase_classes_reproduce_half_phase(model, classes):
+    """n = 16: each state's class, looked up in the class table, is
+    ``_half_phase``'s (cos, -sin) pair exactly; the classes are the
+    distinct angles in ascending order, one byte a state: TFIM's 9 and
+    Heisenberg's 32 with a transverse field and one on site 0."""
+    n, dt = 16, 0.1 / 8
+    diag = _diag_words(_port_skqd(model, n)[0])
+    phase = xs.half_phase_classes(diag, n, dt, "cpu")
+    hr, hi = skqd._half_phase(diag, n, dt, "cpu")
+    cls = phase.cls.long()
+    assert torch.equal(phase.table[cls, 0], hr)
+    assert torch.equal(phase.table[cls, 1], hi)
+    ang = xs.half_phase_angles(diag, n, dt, "cpu")
+    keys = torch.unique(ang)
+    assert torch.equal(keys[cls], ang)
+    assert phase.table.shape == (classes, 2)
+    assert phase.cls.dtype == torch.uint8
+
+
+def _profiled_evolves(s, start, evolves):
+    """``evolves`` evolves from the start state under the profiler: the
+    state and the tracer's counters."""
+    from torch.profiler import ProfilerActivity, profile
+    from flow_guided_krylov_torch.utils import profiling
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            re, im = _start_pair(s, start)
+            for _ in range(evolves):
+                re, im = s._evolve_trotter(re, im)
+        return (re, im), profiling.snapshot()["counters"]
+    finally:
+        profiling.reset()
+
+
+@pytest.mark.parametrize("model,n,launches", [
+    ("tfim", 12, 1), ("tfim", 16, 3), ("heisenberg_field", 16, 3)],
+    ids=["tfim12-one_launch", "tfim16-hoisted", "heisenberg_field16-hoisted"])
+def test_fused_half_phase_counts_and_equals_the_chain(monkeypatch, model, n,
+                                                      launches):
+    """The substep with its half-phase inside the first and last sweep
+    (the card's path, run here through the plain version) equals the
+    chain of 2^n tables bit for bit over two evolves, in ``launches``
+    sweeps a substep (one at 12 sites carries both ends), and counts the
+    build's distinct angles once.  It keeps no 2^n table: ``_half_phase``
+    is not called.  ``trotter.phase_launches`` counts kernel launches,
+    so the plain version adds none (the card's test counts them)."""
+    chain, start = _port_skqd(model, n)
+    want, counters = _profiled_evolves(chain, start, 2)
+    assert not any(k.startswith("trotter.") for k in counters)
+    monkeypatch.setattr(skqd, "_fuses_half_phase", lambda device: True)
+    monkeypatch.setattr(skqd, "_half_phase", None)
+    fused, _ = _port_skqd(model, n)
+    got, counters = _profiled_evolves(fused, start, 2)
+    assert len(fused._trotter.parts) == launches
+    classes = xs.half_phase_classes(_diag_words(fused), n, 0.1 / 8, "cpu")
+    assert fused._trotter.parts[0].keywords["at"] == (
+        xs.PHASE_LOAD | (xs.PHASE_STORE if launches == 1 else 0))
+    assert fused._trotter.parts[-1].keywords["at"] & xs.PHASE_STORE
+    assert counters == {"trotter.phase_classes": classes.table.shape[0]}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_phase_fallback_past_the_class_cap(monkeypatch):
+    """Distinct random longitudinal fields on 17 sites give 131,024
+    distinct angles, past the 256 a one-byte class holds: the build
+    gives None, and the substep keeps its tables and counts
+    ``trotter.phase_fallback``.  The cap lowered refuses one class short
+    of the count and takes the count itself."""
+    from flow_guided_krylov_torch.hamiltonians import HeisenbergHamiltonian
+    n, dt = 17, 0.1 / 8
+    rng = np.random.default_rng(0)
+    h = HeisenbergHamiltonian(n, 1.0, 1.0, 1.0, h_x=np.full(n, 0.3),
+                              h_z=rng.uniform(-1, 1, n), device="cpu")
+    s = skqd.SampleBasedKrylovDiagonalization(
+        h, skqd.SKQDConfig(time_step=0.1, num_trotter_steps=8,
+                           evolution="trotter"),
+        initial_state=np.array([0], np.uint32))
+    diag = _diag_words(s)
+    assert len(torch.unique(xs.half_phase_angles(diag, n, dt, "cpu"))) \
+        > xs.MAX_PHASE_CLASSES
+    assert xs.half_phase_classes(diag, n, dt, "cpu") is None
+    monkeypatch.setattr(skqd, "_fuses_half_phase", lambda device: True)
+    from torch.profiler import ProfilerActivity, profile
+    from flow_guided_krylov_torch.utils import profiling
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            substep = s._trotter_ops()
+        assert profiling.snapshot()["counters"] == {
+            "trotter.phase_fallback": 1}
+    finally:
+        profiling.reset()
+    assert not hasattr(substep, "parts")
+    # the cap lowered: TFIM-12's seven classes
+    small = _diag_words(_port_skqd("tfim", 12)[0])
+    monkeypatch.setattr(xs, "MAX_PHASE_CLASSES", 6)
+    assert xs.half_phase_classes(small, 12, dt, "cpu") is None
+    monkeypatch.setattr(xs, "MAX_PHASE_CLASSES", 7)
+    assert xs.half_phase_classes(small, 12, dt, "cpu").table.shape == (7, 2)
 
 
 def _exact_evolved(h, psi0, t):
