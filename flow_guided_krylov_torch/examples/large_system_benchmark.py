@@ -229,12 +229,12 @@ def extrapolate_de2(rows, e_var_final=None, de2_final=None,
 
 def run_restricted_skqd(h, exact, basis, e_sci: float,
                         krylov_dim: int = 6, shots: int = 100_000,
-                        dt: float = 0.1) -> dict:
+                        dt: float = 0.1, seed: int = 0) -> dict:
     """Stage 4 at the frontier: restricted-subspace SKQD on top of a
     Selected-CI basis.  Evolution acts within (basis + top PT2
     externals) sized to the device propagator (past 20,000 states the ELL
     kernel); sampling the evolved state discovers determinants stage 3
-    missed."""
+    missed.  ``seed`` seeds the draws (``SKQDConfig.seed``)."""
     t0 = time.time()
     cap = supported_evolution_dim(h)
     states = build_restricted_subspace(h, basis, cap,
@@ -242,7 +242,7 @@ def run_restricted_skqd(h, exact, basis, e_sci: float,
     skqd = FlowGuidedSKQD(
         h, basis,
         SKQDConfig(max_krylov_dim=krylov_dim, shots_per_krylov=shots,
-                   time_step=dt, verbose=True),
+                   time_step=dt, seed=seed, verbose=True),
         initial_state=h.get_hf_state(), subspace_states=states)
     out = skqd.run_with_nf(final_only=True)
     e4 = float(out["best_stable_energy"])

@@ -46,6 +46,7 @@ import torch
 
 from ..hamiltonians.base import Hamiltonian, lex_order
 from ..ops.bits import to_device
+from ..utils.profiling import count, span
 
 __all__ = ["ResidualExpansionConfig", "SelectedCIExpander",
            "ResidualBasedExpander", "iterative_residual_expansion"]
@@ -621,8 +622,18 @@ class SelectedCIExpander:
         growth loop; eager torch compiles nothing, so it is accepted and
         ignored.  With a mesh each block's source rows split over its
         entries (:meth:`_shards`), each shard with its own top ``cap``, and
-        the host sums the shards' partial couplings as it sums blocks."""
+        the host sums the shards' partial couplings as it sums blocks.
+
+        The whole sum is the span ``residual.pt2``; it counts
+        ``pt2.externals`` and, when device blocks scored, ``pt2.device``."""
         del pad_to
+        with span("residual.pt2"):
+            out = self._pt2_correction(basis, coeffs, energy, cap)
+        count("pt2.externals", out["n_external"])
+        return out
+
+    def _pt2_correction(self, basis: np.ndarray, coeffs: np.ndarray,
+                        energy: float, cap: int) -> Dict:
         h = self.h
         C = h.n_connections
         basis = np.atleast_2d(np.asarray(basis, np.uint32))
@@ -634,6 +645,7 @@ class SelectedCIExpander:
                 h.device).pt2_score_rows(C, h.pack_words)
         if not self._pt2_row_cap:
             return self._pt2_correction_host(basis, coeffs, energy)
+        count("pt2.device")
         if h.pack_words == 4:
             return self._pt2_correction_multiword(basis, coeffs, energy, cap)
 

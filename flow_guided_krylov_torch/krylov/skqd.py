@@ -93,33 +93,37 @@ def build_restricted_subspace(h: Hamiltonian, basis: np.ndarray, cap: int,
 
     The propagator then acts within (basis + strongest externals), so time
     evolution still moves amplitude into determinants the variational
-    stages missed, at any system size."""
-    from .residual_expansion import (ResidualExpansionConfig,
-                                     SelectedCIExpander)
-    basis = np.atleast_2d(np.asarray(basis, np.uint32))
-    cap = int(cap)
-    exp = SelectedCIExpander(h, ResidualExpansionConfig(max_basis_size=cap),
-                             mesh=mesh)
-    rows = []
-    if initial_state is not None:
-        rows.append(np.atleast_2d(np.asarray(initial_state, np.uint32)))
-    n_init = sum(len(r) for r in rows)
-    if len(basis) + n_init > cap:
-        # the basis alone overflows the propagator: keep its top-|c| rows
-        _, coeffs = exp._diagonalize(basis)
-        keep = np.argsort(-np.abs(coeffs))[:max(1, cap - n_init)]
-        rows.append(basis[np.sort(keep)])
-    else:
-        rows.append(basis)
-        room = cap - len(basis) - n_init
-        if room > 0:
-            cand, scores, _, _ = exp.rank_external_candidates(basis)
-            if len(cand):
-                top = cand[np.argsort(-scores)[:room]]
-                rows.append(np.asarray(top, np.uint32))
-    states = np.concatenate(rows, axis=0)
-    _, first = np.unique(h.keys(states), return_index=True)
-    return states[np.sort(first)]
+    stages missed, at any system size.  The build is the span
+    ``skqd.restrict``."""
+    with span("skqd.restrict"):
+        from .residual_expansion import (ResidualExpansionConfig,
+                                         SelectedCIExpander)
+        basis = np.atleast_2d(np.asarray(basis, np.uint32))
+        cap = int(cap)
+        exp = SelectedCIExpander(
+            h, ResidualExpansionConfig(max_basis_size=cap), mesh=mesh)
+        rows = []
+        if initial_state is not None:
+            rows.append(np.atleast_2d(np.asarray(initial_state,
+                                                 np.uint32)))
+        n_init = sum(len(r) for r in rows)
+        if len(basis) + n_init > cap:
+            # the basis alone overflows the propagator: keep its top-|c|
+            # rows
+            _, coeffs = exp._diagonalize(basis)
+            keep = np.argsort(-np.abs(coeffs))[:max(1, cap - n_init)]
+            rows.append(basis[np.sort(keep)])
+        else:
+            rows.append(basis)
+            room = cap - len(basis) - n_init
+            if room > 0:
+                cand, scores, _, _ = exp.rank_external_candidates(basis)
+                if len(cand):
+                    top = cand[np.argsort(-scores)[:room]]
+                    rows.append(np.asarray(top, np.uint32))
+        states = np.concatenate(rows, axis=0)
+        _, first = np.unique(h.keys(states), return_index=True)
+        return states[np.sort(first)]
 
 
 @dataclass
@@ -681,7 +685,18 @@ class SampleBasedKrylovDiagonalization:
         built there chunk by chunk by the Hamiltonian's replica on that
         device (``Hamiltonian.on``), so no device holds more than its own
         block, the search keys and one chunk, and only the keys are
-        copied between devices."""
+        copied between devices.
+
+        The build is the span ``skqd.ell_build`` (synchronized); the
+        counters ``ell.rows`` and ``ell.entries`` add N and N x C."""
+        with span("skqd.ell_build", sync=True):
+            out = self._ell_tables(states, chunk, mesh)
+        count("ell.rows", len(states))
+        count("ell.entries", len(states) * self.h.n_connections)
+        return out
+
+    def _ell_tables(self, states: np.ndarray, chunk: Optional[int],
+                    mesh):
         from ..utils.memory import MemoryBudget
         states = np.atleast_2d(np.asarray(states, np.uint32))
         dim = len(states)
@@ -767,12 +782,15 @@ class SampleBasedKrylovDiagonalization:
         return lambda v: ell_spmv(*ell, v)
 
     def _evolve_device_ell(self, psi: np.ndarray) -> np.ndarray:
-        mv = self._ell_matvec()
-        re, im = self._psi_to_device(psi)
-        out_r, out_i = _lanczos_expm_impl(
-            mv, re, im, self.config.time_step,
-            min(self.config.lanczos_dim, self.dim))
-        return out_r.cpu().numpy() + 1j * out_i.cpu().numpy()
+        """ELL Lanczos propagator; the span ``skqd.evolve`` (synchronized),
+        the first one holding the table build."""
+        with span("skqd.evolve", sync=True):
+            mv = self._ell_matvec()
+            re, im = self._psi_to_device(psi)
+            out_r, out_i = _lanczos_expm_impl(
+                mv, re, im, self.config.time_step,
+                min(self.config.lanczos_dim, self.dim))
+            return out_r.cpu().numpy() + 1j * out_i.cpu().numpy()
 
     def evolve(self, psi: np.ndarray) -> np.ndarray:
         """exp(-i dt H) psi for a host complex vector over the subspace.
@@ -812,12 +830,14 @@ class SampleBasedKrylovDiagonalization:
     # ------------------------------------------------------------------
 
     def sample_state(self, psi: np.ndarray, shots: int) -> Dict[int, int]:
-        """Measurement counts {subspace_index: count}."""
-        re, im = self._psi_to_device(psi)
-        counts = _sample_counts_device(re, im, shots,
-                                       self.generator).cpu().numpy()
-        nz = np.nonzero(counts)[0]
-        return {int(i): int(counts[i]) for i in nz}
+        """Measurement counts {subspace_index: count}, in the span
+        ``skqd.sample``."""
+        with span("skqd.sample"):
+            re, im = self._psi_to_device(psi)
+            counts = _sample_counts_device(re, im, shots,
+                                           self.generator).cpu().numpy()
+            nz = np.nonzero(counts)[0]
+            return {int(i): int(counts[i]) for i in nz}
 
     def generate_krylov_samples(self) -> List[Dict[int, int]]:
         """Sample at every Krylov step k=0..K-1, evolving in between."""

@@ -49,6 +49,7 @@ from typing import Optional
 import torch
 
 from ..utils.build import build_library, find_nvcc
+from ..utils.profiling import count
 
 __all__ = ["ell_spmv", "ell_spmv_reference", "ell_spmv_cuda", "ell_segments", "psi_fits_on_chip", "KERNEL_SOURCE"]
 
@@ -203,7 +204,11 @@ def ell_spmv(diag: torch.Tensor, elems_t: torch.Tensor, tgt_t: torch.Tensor,
              psi: torch.Tensor, row0: int = 0,
              n_total: Optional[int] = None) -> torch.Tensor:
     """ELL matvec over (C, n_rows) tables on ``psi``'s device (rows
-    [row0, row0 + n_rows) of an ``n_total``-row operator)."""
+    [row0, row0 + n_rows) of an ``n_total``-row operator).  Counts
+    ``ell.launches`` (one a product: a kernel launch on a card) and
+    ``ell.vectors`` (the vectors it multiplies)."""
+    count("ell.launches")
+    count("ell.vectors", 1 if psi.dim() == 1 else psi.shape[0])
     if psi.device.type == "cuda":
         return ell_spmv_cuda(diag, elems_t, tgt_t, psi, row0=row0,
                              n_total=n_total)

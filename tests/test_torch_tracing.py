@@ -258,3 +258,91 @@ def test_trace_writes_spans_beside_the_trace(tmp_path):
     assert set(spans["spans"]) == {"inside"}
     assert spans["counters"] == {"things": 2}
     assert spans == profiling.snapshot()
+
+
+# -- restricted SKQD through the ELL route (the CLI's sci+skqd) -----------
+
+H2O_NPZ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "perfbench", "tests", "data", "h2o-sto3g.integrals.npz")
+RESTRICTED_SPANS = {"residual.pt2": 1, "skqd.restrict": 1,
+                    "skqd.ell_build": 1, "skqd.evolve": K - 1,
+                    "skqd.sample": K}
+
+
+def _h2o():
+    from flow_guided_krylov_torch.chem.scf import MolecularIntegrals
+    from flow_guided_krylov_torch.hamiltonians.molecular import \
+        MolecularHamiltonian
+    with np.load(H2O_NPZ) as z:
+        ints = MolecularIntegrals(
+            h1e=z["h1e"], h2e=z["h2e"],
+            nuclear_repulsion=float(z["nuclear_repulsion"]), n_electrons=10,
+            n_orbitals=7, n_alpha=5, n_beta=5)
+    return MolecularHamiltonian(ints, "cpu")
+
+
+def _sci_skqd(seed=2):
+    """One SCI round, its exact dE2 and restricted SKQD, as the CLI's
+    ``--mode sci+skqd`` runs them, the ELL route taken (past the dense
+    cap); the ELL products and the dE2 results are noted."""
+    from flow_guided_krylov_torch.examples import \
+        large_system_benchmark as lsb
+    from flow_guided_krylov_torch.krylov.residual_expansion import \
+        SelectedCIExpander
+    from flow_guided_krylov_torch.ops import ell_spmv as ell_mod
+    h = _h2o()
+    products, pt2 = [], []
+    plain = ell_mod.ell_spmv_reference
+    correct = SelectedCIExpander.pt2_correction
+
+    def counted(*args, **kw):
+        products.append(args[3].shape)
+        return plain(*args, **kw)
+
+    def noted(self, *args, **kw):
+        pt2.append(correct(self, *args, **kw))
+        return pt2[-1]
+
+    with mock.patch.object(SampleBasedKrylovDiagonalization,
+                           "_dense_evolution_cap", lambda self: 0), \
+            mock.patch.object(ell_mod, "ell_spmv_reference", counted), \
+            mock.patch.object(SelectedCIExpander, "pt2_correction", noted):
+        sci = lsb.run_sci(h, None, iters=1)
+        out = lsb.run_restricted_skqd(h, None, sci.pop("_basis"),
+                                      sci["final_energy"], krylov_dim=K,
+                                      shots=SHOTS, seed=seed)
+    out.pop("skqd_wall_s")
+    return out, products, pt2, h
+
+
+def test_restricted_solve_records_nothing_with_recording_off():
+    with mock.patch.object(torch.profiler, "record_function", _raise), \
+            mock.patch.object(torch.cuda, "synchronize", _raise):
+        out, products, _, _ = _sci_skqd()
+    assert products and np.isfinite(out["skqd_energy"])
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_restricted_solve_records_its_spans_and_counters():
+    off = _sci_skqd()[0]
+    (on, products, pt2, h), names = _profiled(_sci_skqd)
+    assert on == off
+    snap = profiling.snapshot()
+    assert {k: v["calls"] for k, v in snap["spans"].items()
+            if k in RESTRICTED_SPANS} == RESTRICTED_SPANS
+    assert set(RESTRICTED_SPANS) <= names
+    recs = profiling.records()
+    build = next(r for r in recs if r.name == "skqd.ell_build")
+    first = next(r for r in recs if r.name == "skqd.evolve")
+    assert build.parent == first.id
+    dim = on["skqd_restricted_dim"]
+    c = snap["counters"]
+    # one ELL product a Lanczos step, each a (2, N) [Re; Im] stack
+    assert c["ell.launches"] == len(products) == (K - 1) * min(30, dim)
+    assert c["ell.vectors"] == sum(p[0] for p in products) == 2 * len(
+        products)
+    assert c["ell.rows"] == dim
+    assert c["ell.entries"] == dim * h.n_connections
+    assert c["pt2.externals"] == pt2[0]["n_external"] > 0
+    assert c["pt2.device"] == 1
