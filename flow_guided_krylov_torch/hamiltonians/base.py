@@ -334,7 +334,7 @@ class Hamiltonian(ABC):
         M = (M + M.T) * 0.5
         if v0 is not None and len(v0) != B:
             v0 = None
-        vals, vecs = counted_eigsh(M, k=max(k, 2), which="SA", v0=v0)
+        vals, vecs = counted_eigsh(M, k=max(k, 1), which="SA", v0=v0)
         idx = np.argsort(vals)
         return vals[idx][:k], vecs[:, idx][:, :k]
 

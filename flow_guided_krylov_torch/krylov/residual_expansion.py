@@ -331,9 +331,8 @@ class SelectedCIExpander:
                                             tol=1e-10)
                     e, vec = float(vals[0]), vecs[:, 0]
             else:
-                vals, vecs = spla.eigsh(M, k=2, which="SA")
-                idx = np.argsort(vals)
-                e, vec = float(vals[idx][0]), vecs[:, idx][:, 0]
+                vals, vecs = spla.eigsh(M, k=1, which="SA")
+                e, vec = float(vals[0]), vecs[:, 0]
         else:
             vals, vecs = self.h.exact_ground_state(basis, k=1, v0=v0)
             e, vec = float(vals[0]), vecs[:, 0]

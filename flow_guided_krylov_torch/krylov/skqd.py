@@ -137,7 +137,6 @@ class SKQDConfig:
     # are always cumulative (build_cumulative_basis); carried for config
     # parity
     use_cumulative_basis: bool = True
-    num_eigenvalues: int = 2
     regularization: float = 1e-8
     # False evolves on the host (the 'scipy' propagator), whatever
     # ``evolution`` says; Trotter mode has no host propagator
@@ -938,15 +937,15 @@ class SampleBasedKrylovDiagonalization:
             with span("skqd.project"):
                 M = self.h.to_sparse(basis)
                 M = (M + M.T) * 0.5 + reg * sp.eye(nb)
-            k = min(self.config.num_eigenvalues, nb - 1)
+            # one pair, the one read: a second would have ARPACK converge
+            # an unread Ritz pair, often inside a degenerate band
             try:
-                vals, vecs = counted_eigsh(M, k=max(k, 1), which="SA", v0=v0)
+                vals, vecs = counted_eigsh(M, k=1, which="SA", v0=v0)
             except spla.ArpackNoConvergence:
                 vals, vecs = np.linalg.eigh(M.toarray())
-            idx = np.argsort(vals)
-            e = float(vals[idx][0] - reg)
+            e = float(vals[0] - reg)
             if return_vector:
-                return e, vecs[:, idx][:, 0]
+                return e, vecs[:, 0]
             return e
 
         with span("skqd.project"):

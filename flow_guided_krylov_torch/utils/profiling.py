@@ -99,8 +99,10 @@ def counted_eigsh(M, **kw):
     it gets a ``LinearOperator`` that applies ``M`` as ``eigsh`` itself
     would and counts ``eigsh.matvecs`` and their host seconds,
     ``eigsh.matvec_s``: the same arithmetic, so the same iterations and
-    answer.  Otherwise it gets ``M`` itself."""
+    answer; ``eigsh.pairs`` sums the eigenpairs asked for (``k``).
+    Otherwise it gets ``M`` itself."""
     import scipy.sparse.linalg as spla
+    count("eigsh.pairs", kw.get("k", 6))
     with span("eigsh"):
         if not recording():
             return spla.eigsh(M, **kw)
