@@ -2464,9 +2464,6 @@ def phase_eigensolvers(fci, fci_s, device="cuda", rehearsal=False):
     H = dense_from_ell(*tables)
     (e_dense, _), s_dense, _ = timed(lambda: lanczos_ground_state(H, m=m))
     del H
-    basis = h.enumerate_basis()
-    seeded, s_seeded, _ = (timed(lambda: h._device_ground_state(basis))
-                           if len(basis) <= 20_000 else (None, None, 0))
     f64 = dict(dtype=torch.float64, device=device)
     T = torch.diag(torch.randn(120, **f64)) + torch.diag(
         torch.randn(119, **f64), 1)
@@ -2479,13 +2476,6 @@ def phase_eigensolvers(fci, fci_s, device="cuda", rehearsal=False):
         "dense": {"energy": e_dense, "gap": e_dense - fci,
                   "seconds": s_dense},
         "eigh_120_s": s_eigh, "eigh_share_of_ell_solve": 2 * s_eigh / s_ell}
-    if seeded is not None:
-        res[molecule]["device_seeded_eigsh"] = {
-            "energy": float(seeded[0][0]), "gap": float(seeded[0][0]) - fci,
-            "seconds": s_seeded}
-        if not abs(float(seeded[0][0]) - fci) < REFINED_TOL:
-            raise RuntimeError(f"_device_ground_state {seeded[0][0]} vs "
-                               f"FCI {fci}")
     for name, e in (("ell", e_ell), ("dense", e_dense)):
         if not abs(e - fci) < EIGENSOLVER_TOL:
             raise RuntimeError(f"lanczos_ground_state {name}: {e} vs FCI "

@@ -35,10 +35,10 @@ import time
 from math import comb
 
 import numpy as np
-import scipy.sparse.linalg as spla
 
 from ..hamiltonians import (HeisenbergHamiltonian, TransverseFieldIsing,
                             extract_coeffs_and_paulis)
+from ..hamiltonians.base import lowest_pairs
 from ..hamiltonians.spin import pack_spin_state, spin_state_int
 from ..krylov import (ResidualExpansionConfig, SKQDConfig,
                       SampleBasedKrylovDiagonalization,
@@ -76,7 +76,7 @@ def exact_oracle(ham) -> float:
         return tfim_free_fermion_energy(n, ham.V, ham.h)
     states = np.arange(1 << n, dtype=np.uint32)[:, None]
     H = ham.to_sparse(states)
-    return float(spla.eigsh(H, k=1, which="SA")[0][0])
+    return float(lowest_pairs(H)[0][0])
 
 
 def basis_energy(ham, basis: np.ndarray) -> float:

@@ -22,7 +22,30 @@ import torch
 from ..ops.bits import _SIGN_FLIP, join2, keys_device, split2, unkey_device
 from ..utils.profiling import counted_eigsh
 
-__all__ = ["Hamiltonian", "PauliString", "lex_order"]
+__all__ = ["Hamiltonian", "PauliString", "lex_order", "lowest_pairs",
+           "DENSE_SOLVE_MAX_ROWS"]
+
+# a projected basis of at most this many states is built dense
+# (``matrix_elements``) and solved by ``eigh``; a larger one is built
+# sparse (``to_sparse``) and solved by ``eigsh``
+DENSE_SOLVE_MAX_ROWS = 2048
+
+
+def lowest_pairs(M, k: int = 1, v0: Optional[np.ndarray] = None,
+                 tol: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``k`` lowest eigenpairs of the symmetric ``M``, ascending:
+    ``np.linalg.eigh`` for a dense array; for a sparse matrix or a
+    ``LinearOperator``, ``counted_eigsh`` (``which="SA"``, ``tol``, from
+    ``v0`` unless its length is not ``M``'s).  Every host solve of a
+    projected basis picks its library call here."""
+    if isinstance(M, np.ndarray):
+        vals, vecs = np.linalg.eigh(M)
+        return vals[:k], vecs[:, :k]
+    if v0 is not None and len(v0) != M.shape[0]:
+        v0 = None
+    vals, vecs = counted_eigsh(M, k=max(k, 1), which="SA", v0=v0, tol=tol)
+    idx = np.argsort(vals)
+    return vals[idx][:k], vecs[:, idx][:, :k]
 
 
 def lex_order(keys: torch.Tensor) -> torch.Tensor:
@@ -314,29 +337,28 @@ class Hamiltonian(ABC):
         vals = np.concatenate([vals, diag])
         return sp.coo_matrix((vals, (rows, cols)), shape=(B, B)).tocsr()
 
-    def exact_ground_state(self, basis: np.ndarray, k: int = 1,
-                           v0: Optional[np.ndarray] = None
-                           ) -> Tuple[np.ndarray, np.ndarray]:
-        """Lowest-k eigenpairs of H projected onto ``basis``: dense eigh
-        up to 2048 states, sparse eigsh above."""
+    def projected(self, basis: np.ndarray):
+        """H projected on ``basis`` and symmetrized (host f64): a dense
+        array from :meth:`matrix_elements` up to ``DENSE_SOLVE_MAX_ROWS``
+        states (with a warning when its asymmetry passes 1e-8), a CSR
+        matrix from :meth:`to_sparse` above."""
         basis = np.atleast_2d(np.asarray(basis, np.uint32))
-        B = basis.shape[0]
-        if B <= 2048:
+        if basis.shape[0] <= DENSE_SOLVE_MAX_ROWS:
             H = self.matrix_elements(basis, basis)
             asym = np.max(np.abs(H - H.T))
             if asym > 1e-8:
                 import warnings
                 warnings.warn(f"projected H asymmetry {asym:.2e}; symmetrizing")
-            H = 0.5 * (H + H.T)
-            vals, vecs = np.linalg.eigh(H)
-            return vals[:k], vecs[:, :k]
+            return 0.5 * (H + H.T)
         M = self.to_sparse(basis)
-        M = (M + M.T) * 0.5
-        if v0 is not None and len(v0) != B:
-            v0 = None
-        vals, vecs = counted_eigsh(M, k=max(k, 1), which="SA", v0=v0)
-        idx = np.argsort(vals)
-        return vals[idx][:k], vecs[:, idx][:, :k]
+        return (M + M.T) * 0.5
+
+    def exact_ground_state(self, basis: np.ndarray, k: int = 1,
+                           v0: Optional[np.ndarray] = None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Lowest-k eigenpairs of H projected onto ``basis``
+        (:meth:`projected`, then :func:`lowest_pairs`)."""
+        return lowest_pairs(self.projected(basis), k=k, v0=v0)
 
 
 class PauliString:

@@ -39,8 +39,7 @@ class MolecularHamiltonian(Hamiltonian):
     """Molecular Hamiltonian with particle-conserving determinant algebra."""
 
     pack_words = 2
-    DEVICE_CACHES = {"_conn_fn": None, "_device_table": None,
-                     "_device_table_built": False}
+    DEVICE_CACHES = {"_conn_fn": None}
 
     def __init__(self, integrals: MolecularIntegrals, device):
         self.integrals = integrals
@@ -57,8 +56,6 @@ class MolecularHamiltonian(Hamiltonian):
             integrals.h1e, integrals.h2e, integrals.nuclear_repulsion,
             integrals.n_alpha, integrals.n_beta)
         self._conn_fn = None
-        self._device_table = None
-        self._device_table_built = False
         self._fci_cache: Optional[Tuple[float, np.ndarray, np.ndarray]] = None
         self._fci_energy_cache: Optional[float] = None
 
@@ -137,91 +134,6 @@ class MolecularHamiltonian(Hamiltonian):
         if self._conn_fn is None:
             self._conn_fn = make_connection_fn_auto(self.tables, self.device)
         return self._conn_fn
-
-    # ------------------------------------------------------------------
-    # Device-seeded ground states: a dense float32 Lanczos on the device,
-    # then a float64 eigsh on the host started from its vector.  The f32
-    # Ritz vector carries O(1e-4) component error; eigsh from it converges
-    # in a handful of matvecs.
-    # ------------------------------------------------------------------
-
-    @property
-    def device_table(self):
-        """The full-space connection table on ``self.device``, built once
-        (None when it would pass ``build_connection_table``'s entry
-        cap)."""
-        if not self._device_table_built:
-            from ..utils.connection_table import build_connection_table
-            self._device_table = build_connection_table(self)
-            self._device_table_built = True
-        return self._device_table
-
-    def _device_ground_state(self, basis: np.ndarray):
-        """(vals (1,), vecs (B, 1)) of H projected on ``basis`` (at most
-        20,000 determinants of an enumerable space), or None when the
-        table or the basis is too large or ARPACK does not converge.
-
-        The projected H is densified on the device from the connection
-        table's rows (a scatter of distinct (row, target) pairs),
-        :func:`lanczos_ground_state` gives the start vector, and the host
-        solves in f64 on a matrix-free ELL operator over the same rows
-        (no CSR assembly)."""
-        import scipy.sparse.linalg as spla
-        from ..ops.bits import to_device
-        from ..postprocessing.eigensolver import lanczos_ground_state
-        t = self.device_table
-        n_basis = len(basis)
-        if t is None or n_basis > 20_000:
-            return None
-        dev = self.device
-        idx = t.lookup(to_device(basis, dev))
-        pos_of_global = torch.full((t.n_configs,), -1, dtype=torch.int64,
-                                   device=dev)
-        pos_of_global[idx] = torch.arange(n_basis, device=dev)
-        tgt_sub = pos_of_global[t.target_idx[idx].long()]  # (B, C); -1 = ext
-        mask = tgt_sub >= 0
-        tgt_clip = tgt_sub.clamp(min=0)
-        elems = torch.where(mask, t.elems[idx], 0.0)
-
-        rows = torch.arange(n_basis, device=dev)
-        H_dev = torch.zeros((n_basis, n_basis), dtype=torch.float32,
-                            device=dev)
-        H_dev.index_put_((rows[:, None].expand_as(tgt_clip), tgt_clip),
-                         elems, accumulate=True)
-        H_dev.index_put_((rows, rows), t.diag[idx], accumulate=True)
-        _, v_dev = lanczos_ground_state(H_dev, m=min(120, n_basis))
-        del H_dev
-
-        diag64 = self.diagonal_np(basis)
-        elems64 = elems.double().cpu().numpy()
-        tgt_np = tgt_clip.cpu().numpy()
-
-        def matvec(x):
-            return diag64 * x + np.sum(elems64 * x[tgt_np], axis=1)
-
-        op = spla.LinearOperator((n_basis, n_basis), matvec=matvec,
-                                 dtype=np.float64)
-        try:
-            return spla.eigsh(op, k=1, which="SA",
-                              v0=v_dev.double().cpu().numpy())
-        except spla.ArpackNoConvergence:
-            return None
-
-    def exact_ground_state(self, basis: np.ndarray, k: int = 1,
-                           v0: Optional[np.ndarray] = None):
-        """As the base class; with ``FGK_DEVICE_EIGENSOLVE=1`` in the
-        environment and the Hamiltonian on a card, one eigenpair of more
-        than 2048 determinants takes :meth:`_device_ground_state` (opt-in,
-        as in the JAX package: the solve matches eigsh to ~1e-8 Ha but
-        fetches the basis's table rows to the host)."""
-        import os
-        basis = np.atleast_2d(np.asarray(basis, np.uint32))
-        if (k == 1 and len(basis) > 2048 and self.device.type == "cuda"
-                and os.environ.get("FGK_DEVICE_EIGENSOLVE", "0") == "1"):
-            out = self._device_ground_state(basis)
-            if out is not None:
-                return out
-        return super().exact_ground_state(basis, k=k, v0=v0)
 
     # ------------------------------------------------------------------
     # FCI (exactness oracle)

@@ -44,7 +44,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..hamiltonians.base import Hamiltonian, lex_order
+from ..hamiltonians.base import (DENSE_SOLVE_MAX_ROWS, Hamiltonian,
+                                 lex_order, lowest_pairs)
 from ..ops.bits import to_device
 from ..utils.profiling import count, span
 
@@ -308,8 +309,7 @@ class SelectedCIExpander:
             v0 = np.zeros(len(basis))
             v0[:len(prev)] = prev
 
-        if len(basis) > 2048:
-            import scipy.sparse.linalg as spla
+        if len(basis) > DENSE_SOLVE_MAX_ROWS:
             tb = time.perf_counter()
             M = self._projected_sparse(basis, keys)
             self.timings["diag_build"] += time.perf_counter() - tb
@@ -327,11 +327,10 @@ class SelectedCIExpander:
                     if dav.converged:
                         e, vec = float(dvals[0]), dvecs[:, 0]
                 if e is None:
-                    vals, vecs = spla.eigsh(M, k=1, which="SA", v0=v0,
-                                            tol=1e-10)
+                    vals, vecs = lowest_pairs(M, v0=v0, tol=1e-10)
                     e, vec = float(vals[0]), vecs[:, 0]
             else:
-                vals, vecs = spla.eigsh(M, k=1, which="SA")
+                vals, vecs = lowest_pairs(M)
                 e, vec = float(vals[0]), vecs[:, 0]
         else:
             vals, vecs = self.h.exact_ground_state(basis, k=1, v0=v0)

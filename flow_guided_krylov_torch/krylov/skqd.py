@@ -46,7 +46,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..hamiltonians.base import Hamiltonian, _KeyIndex
+from ..hamiltonians.base import Hamiltonian, _KeyIndex, lowest_pairs
 from ..hamiltonians.spin import extract_coeffs_and_paulis
 from ..ops.bits import to_device
 from ..ops.ell_spmv import ell_spmv
@@ -54,7 +54,7 @@ from ..ops.x_sweep import (PHASE_LOAD, PHASE_STORE, TILE_BITS, _pauli_masks,
                            half_phase_angles, half_phase_classes,
                            make_gathered_sweeps, phase_table)
 from ..ops.x_sweep import diag_mul as _diag_mul
-from ..utils.profiling import count, counted_eigsh, span
+from ..utils.profiling import count, span
 
 __all__ = ["SKQDConfig", "SampleBasedKrylovDiagonalization",
            "FlowGuidedSKQD", "EvolutionBudgetError", "lanczos_expm",
@@ -66,12 +66,13 @@ class EvolutionBudgetError(RuntimeError):
     """The subspace fits no device propagator in the device's memory."""
 
 
-def supported_evolution_dim(h: Hamiltonian, mesh=None) -> int:
-    """Largest subspace dimension that ``evolve(auto)`` can propagate on
-    ``h.device``: the dense rows (capped at the JAX package's 20,000-row
-    crossover, as :meth:`SampleBasedKrylovDiagonalization.
-    _dense_evolution_cap`) or the ELL table's entry budget.  The
-    pipeline's stage-4 routing reads it.
+def _evolution_rows(h: Hamiltonian, mesh=None) -> Tuple[int, int]:
+    """(dense rows, ELL rows): the largest subspaces the dense and the ELL
+    device propagators hold on ``h.device``.  Dense rows are capped at the
+    JAX package's 20,000-row crossover (see :meth:`
+    SampleBasedKrylovDiagonalization._dense_evolution_cap`); ELL rows are
+    the connection-table entry budget over ``n_connections + 1`` entries
+    a row.
 
     A mesh row-shards both: dense rows scale by sqrt(d), ELL entries by
     d, d counting physical devices only (a logical mesh on one card gains
@@ -82,7 +83,14 @@ def supported_evolution_dim(h: Hamiltonian, mesh=None) -> int:
     budget = MemoryBudget.for_device(h.device)
     dense = int(min(budget.dense_hamiltonian_cap(), 20_000) * np.sqrt(n_dev))
     ell = budget.connection_table_entries() * n_dev // (h.n_connections + 1)
-    return max(dense, int(ell))
+    return dense, int(ell)
+
+
+def supported_evolution_dim(h: Hamiltonian, mesh=None) -> int:
+    """Largest subspace dimension that ``evolve(auto)`` can propagate on
+    ``h.device``, dense or ELL (:func:`_evolution_rows`).  The pipeline's
+    stage-4 routing reads it."""
+    return max(_evolution_rows(h, mesh))
 
 
 def build_restricted_subspace(h: Hamiltonian, basis: np.ndarray, cap: int,
@@ -507,9 +515,6 @@ class SampleBasedKrylovDiagonalization:
                 self._h_dense_dev = torch.as_tensor(h_np, device=self.device)
         return self._h_dense_dev
 
-    def _n_physical(self) -> int:
-        return self.mesh.n_physical if self.mesh is not None else 1
-
     def _dense_evolution_cap(self) -> int:
         """Max subspace dim for the dense device propagator.  The 20,000
         row ceiling is the JAX package's dense/ELL crossover.  On an H100
@@ -518,19 +523,13 @@ class SampleBasedKrylovDiagonalization:
         rows of 2,835 connections, ELL ahead at 14,400 rows of 609 and,
         twofold, at 30,513 rows of 2,835 (``chip_smoke.py``), so the
         ceiling stays.  A mesh raises it by sqrt(physical devices)."""
-        from ..utils.memory import MemoryBudget
-        cap = min(MemoryBudget.for_device(self.device)
-                  .dense_hamiltonian_cap(), 20_000)
-        return int(cap * np.sqrt(self._n_physical()))
+        return _evolution_rows(self.h, self.mesh)[0]
 
     def _ell_fits_memory(self) -> bool:
         """True when the fixed-degree (index, element) table of the
         subspace fits the connection-table budget (times the mesh's
         physical devices: the rows shard over them)."""
-        from ..utils.memory import MemoryBudget
-        entries = self.dim * (self.h.n_connections + 1)
-        return entries <= (MemoryBudget.for_device(self.device)
-                           .connection_table_entries() * self._n_physical())
+        return self.dim <= _evolution_rows(self.h, self.mesh)[1]
 
     # ------------------------------------------------------------------
     # Statevector Trotter propagator (large spin systems)
@@ -911,9 +910,11 @@ class SampleBasedKrylovDiagonalization:
 
     def compute_ground_state_energy(self, basis: np.ndarray,
                                     return_vector: bool = False):
-        """Project H on ``basis`` and diagonalize (host f64): Hermitize,
-        regularize, condition check -> SVD fallback, dense/sparse routing.
-        With ``return_vector`` returns (energy, ground vector).
+        """Project H on ``basis`` (``Hamiltonian.projected``: symmetrized,
+        dense or sparse by size), regularize, and diagonalize (host f64;
+        ``lowest_pairs``): a dense H past condition 1e12 takes the SVD
+        fallback, a sparse one whose ``eigsh`` does not converge a dense
+        solve.  With ``return_vector`` returns (energy, ground vector).
 
         For sampled spin bases above ``SEEDED_EIGSH_MIN_ROWS`` states a
         float32 device ELL Lanczos (through the ELL kernel on a card)
@@ -922,43 +923,36 @@ class SampleBasedKrylovDiagonalization:
         nb = len(basis)
         reg = self.config.regularization
 
-        if nb > 2048:
-            v0 = None
-            if nb > self.SEEDED_EIGSH_MIN_ROWS and not self.is_molecular:
-                from ..postprocessing.eigensolver import \
-                    lanczos_ground_state_ell
-                from ..utils.memory import MemoryBudget
-                ell = self._build_ell_device(basis)
-                m_fit = MemoryBudget.for_device(self.device).lanczos_ell_m(
-                    nb, self.h.n_connections, m_max=80)
-                _, v = lanczos_ground_state_ell(*ell, m=min(m_fit, nb))
-                v0 = v.double().cpu().numpy()
-                del ell, v
-            with span("skqd.project"):
-                M = self.h.to_sparse(basis)
-                M = (M + M.T) * 0.5 + reg * sp.eye(nb)
+        v0 = None
+        if nb > self.SEEDED_EIGSH_MIN_ROWS and not self.is_molecular:
+            from ..postprocessing.eigensolver import lanczos_ground_state_ell
+            from ..utils.memory import MemoryBudget
+            ell = self._build_ell_device(basis)
+            m_fit = MemoryBudget.for_device(self.device).lanczos_ell_m(
+                nb, self.h.n_connections, m_max=80)
+            _, v = lanczos_ground_state_ell(*ell, m=min(m_fit, nb))
+            v0 = v.double().cpu().numpy()
+            del ell, v
+        with span("skqd.project"):
+            H = self.h.projected(basis)
+        if sp.issparse(H):
+            H = H + reg * sp.eye(nb)
             # one pair, the one read: a second would have ARPACK converge
             # an unread Ritz pair, often inside a degenerate band
             try:
-                vals, vecs = counted_eigsh(M, k=1, which="SA", v0=v0)
+                vals, vecs = lowest_pairs(H, v0=v0)
             except spla.ArpackNoConvergence:
-                vals, vecs = np.linalg.eigh(M.toarray())
-            e = float(vals[0] - reg)
-            if return_vector:
-                return e, vecs[:, 0]
-            return e
-
-        with span("skqd.project"):
-            H = self.h.matrix_elements(basis, basis)
-        H = 0.5 * (H + H.T) + reg * np.eye(nb)
-        cond = np.linalg.cond(H) if nb > 1 else 1.0
-        if not np.isfinite(cond) or cond > 1e12:
-            # SVD fallback with singular-value clamping
-            u, s, vt = np.linalg.svd(H)
-            s = np.maximum(s, 1e-10)
-            H = u @ np.diag(s) @ vt
-            H = 0.5 * (H + H.T)
-        vals, vecs = np.linalg.eigh(H)
+                vals, vecs = lowest_pairs(H.toarray())
+        else:
+            H = H + reg * np.eye(nb)
+            cond = np.linalg.cond(H) if nb > 1 else 1.0
+            if not np.isfinite(cond) or cond > 1e12:
+                # SVD fallback with singular-value clamping
+                u, s, vt = np.linalg.svd(H)
+                s = np.maximum(s, 1e-10)
+                H = u @ np.diag(s) @ vt
+                H = 0.5 * (H + H.T)
+            vals, vecs = lowest_pairs(H)
         e = float(vals[0] - reg)
         if return_vector:
             return e, vecs[:, 0]
@@ -1032,9 +1026,8 @@ class SampleBasedKrylovDiagonalization:
             return e_dev
         H = self.subspace_hamiltonian
         H = (H + H.T) * 0.5
-        vals = spla.eigsh(H, k=1, which="SA", v0=v.double().cpu().numpy(),
-                          tol=tol, return_eigenvectors=False)
-        e = float(vals.min())
+        vals, _ = lowest_pairs(H, v0=v.double().cpu().numpy(), tol=tol)
+        e = float(vals[0])
         try:
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(repr(e))

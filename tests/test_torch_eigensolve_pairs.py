@@ -1,5 +1,9 @@
-"""The port's host sparse eigensolves ask ARPACK for the pairs their
-callers read: one where only the lowest is read.
+"""The port's host solves of a projected basis: every one goes through
+``hamiltonians/base.py`` (``Hamiltonian.projected`` builds H, dense up to
+``DENSE_SOLVE_MAX_ROWS`` states and sparse above, and ``lowest_pairs``
+solves it), once a solve, with the JAX package's energy; and the sparse
+ones ask ARPACK for the pairs their callers read: one where only the
+lowest is read.
 
 On a translation-closed periodic TFIM-16 basis (every state of Hamming
 weight <= 4, 2,517 states: past the 2,048-state dense cut) the lowest
@@ -8,6 +12,8 @@ partly twofold degenerate.  A second, unread pair there costs ARPACK
 several times the iterations of the one that is read.
 """
 
+import functools
+import sys
 from unittest import mock
 
 import numpy as np
@@ -16,25 +22,38 @@ import scipy.sparse as sp
 import scipy.sparse.linalg
 from torch.profiler import ProfilerActivity, profile
 
+from flow_guided_krylov_tpu.hamiltonians import spin as jspin
+from flow_guided_krylov_tpu.krylov import residual_expansion as jres
+from flow_guided_krylov_tpu.krylov import skqd as jskqd
+from flow_guided_krylov_torch.convert import spin_hamiltonian_from_jax
 from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
+from flow_guided_krylov_torch.hamiltonians import base
+from flow_guided_krylov_torch.hamiltonians.base import DENSE_SOLVE_MAX_ROWS
 from flow_guided_krylov_torch.hamiltonians.spin import pack_spin_state
-from flow_guided_krylov_torch.krylov.residual_expansion import \
-    SelectedCIExpander
+from flow_guided_krylov_torch.krylov.residual_expansion import (
+    ResidualExpansionConfig, SelectedCIExpander)
 from flow_guided_krylov_torch.krylov.skqd import (
     SampleBasedKrylovDiagonalization, SKQDConfig)
 from flow_guided_krylov_torch.utils import profiling
 from tests.test_torch_tracing import _independent_matvecs
 
 N, WEIGHT = 16, 4
+# (sites, largest Hamming weight) -> states: one basis a side of the rule
+LATTICES = {(12, 4): 794, (14, 5): 3473}
+
+
+def _low_weight(n, weight):
+    """Every n-site state of Hamming weight <= ``weight``, ascending."""
+    states = np.arange(2 ** n, dtype=np.uint32)
+    ones = np.unpackbits(states.view(np.uint8)).reshape(-1, 32).sum(1)
+    return states[ones <= weight][:, None]
 
 
 @pytest.fixture(scope="module")
 def chain():
     """(Hamiltonian, basis, symmetrized projected H, its dense eigh)."""
     h = TransverseFieldIsing(N, V=1.0, h=0.5, periodic=True, device="cpu")
-    states = np.arange(2 ** N, dtype=np.uint32)
-    weight = np.unpackbits(states.view(np.uint8)).reshape(-1, 32).sum(1)
-    basis = states[weight <= WEIGHT][:, None]
+    basis = _low_weight(N, WEIGHT)
     assert len(basis) == 2517
     M = h.to_sparse(basis)
     M = ((M + M.T) * 0.5).tocsr()
@@ -42,8 +61,19 @@ def chain():
     return h, basis, M, vals, vecs
 
 
+@functools.lru_cache(maxsize=None)
+def _lattice(n, weight):
+    """(JAX Hamiltonian, the port's, basis): periodic TFIM, h = 0.5."""
+    jh = jspin.TransverseFieldIsing(n, V=1.0, h=0.5, periodic=True)
+    basis = _low_weight(n, weight)
+    assert len(basis) == LATTICES[n, weight]
+    return jh, spin_hamiltonian_from_jax(jh, "cpu"), basis
+
+
 @pytest.fixture(autouse=True)
-def _clean_record():
+def _clean_record(tmp_path, monkeypatch):
+    # the subspace oracle's disk cache: one empty directory a test
+    monkeypatch.setenv("FGK_INTEGRAL_CACHE", str(tmp_path))
     profiling.reset()
     yield
     profiling.reset()
@@ -52,7 +82,7 @@ def _clean_record():
 def _skqd(h):
     return SampleBasedKrylovDiagonalization(
         h, SKQDConfig(evolution="trotter"),
-        initial_state=pack_spin_state(0, N))
+        initial_state=pack_spin_state(0, h.n_sites))
 
 
 def _skqd_energy(h, basis):
@@ -68,7 +98,109 @@ def _sci_energy(h, basis):
     return SelectedCIExpander(h)._diagonalize(basis)[0]
 
 
-SOLVES = {"skqd": _skqd_energy, "exact": _exact_energy, "sci": _sci_energy}
+def _previous(n):
+    """A previous round's vector: shorter than the basis it warms."""
+    return np.random.default_rng(3).uniform(-1, 1, n - 7)
+
+
+def _sci_warm_energy(h, basis):
+    # Davidson off: the warm branch goes straight to its eigsh
+    exp = SelectedCIExpander(h, ResidualExpansionConfig(use_davidson=False))
+    exp._last_coeffs = _previous(len(basis))
+    return exp._diagonalize(basis)[0]
+
+
+def _oracle_energy(h, basis):
+    # a short device Lanczos: the host refine converges from any start
+    return SampleBasedKrylovDiagonalization(
+        h, SKQDConfig(), initial_state=pack_spin_state(0, h.n_sites),
+        subspace_states=basis).exact_subspace_energy(m=ORACLE_M)
+
+
+ORACLE_M = 30
+SOLVES = {"skqd": _skqd_energy, "exact": _exact_energy, "sci": _sci_energy,
+          "sci_warm": _sci_warm_energy, "oracle": _oracle_energy}
+
+
+def _jax_skqd(jh, **kw):
+    return jskqd.SampleBasedKrylovDiagonalization(
+        jh, jskqd.SKQDConfig(**kw), initial_state=np.zeros(1, np.uint32))
+
+
+def _jax_sci_warm(jh, basis):
+    exp = jres.SelectedCIExpander(
+        jh, jres.ResidualExpansionConfig(use_davidson=False))
+    exp._last_coeffs = _previous(len(basis))
+    return exp._diagonalize(basis)[0]
+
+
+def _jax_oracle(jh, basis):
+    return jskqd.SampleBasedKrylovDiagonalization(
+        jh, jskqd.SKQDConfig(), initial_state=np.zeros(1, np.uint32),
+        subspace_states=basis).exact_subspace_energy(m=ORACLE_M)
+
+
+# the JAX package's counterpart of each solve
+JAX_SOLVES = {
+    "skqd": lambda jh, basis: _jax_skqd(
+        jh, evolution="trotter").compute_ground_state_energy(basis),
+    "exact": lambda jh, basis: float(jh.exact_ground_state(basis, k=1)[0][0]),
+    "sci": lambda jh, basis: jres.SelectedCIExpander(jh)._diagonalize(
+        basis)[0],
+    "sci_warm": _jax_sci_warm, "oracle": _jax_oracle}
+
+
+def _watch_lowest_pairs(monkeypatch):
+    """``lowest_pairs`` noting the matrix of each call, in every module of
+    the port that binds it."""
+    real, seen = base.lowest_pairs, []
+
+    def watched(M, *args, **kw):
+        seen.append(M)
+        return real(M, *args, **kw)
+
+    for name, module in list(sys.modules.items()):
+        if (name.startswith("flow_guided_krylov_torch.")
+                and getattr(module, "lowest_pairs", None) is real):
+            monkeypatch.setattr(module, "lowest_pairs", watched)
+    return seen
+
+
+@pytest.mark.parametrize("site, lattice", [
+    pytest.param(site, lat, id=f"{site}-tfim{lat[0]}")
+    for site in sorted(SOLVES) for lat in sorted(LATTICES)
+    # the oracle solves its subspace's sparse H at any size: one suffices
+    if site != "oracle" or lat == (12, 4)])
+def test_each_site_solves_once_through_lowest_pairs(site, lattice,
+                                                    monkeypatch):
+    """Every host solve of a projected basis calls ``lowest_pairs`` once,
+    on a dense array at 794 states and a sparse matrix at 3,473 (the
+    oracle on its subspace's sparse H), and its energy is the JAX
+    package's to 1e-12 Ha."""
+    jh, h, basis = _lattice(*lattice)
+    seen = _watch_lowest_pairs(monkeypatch)
+    e = SOLVES[site](h, basis)
+    assert len(seen) == 1
+    dense = len(basis) <= DENSE_SOLVE_MAX_ROWS and site != "oracle"
+    assert isinstance(seen[0], np.ndarray) == dense
+    assert abs(e - JAX_SOLVES[site](jh, basis)) < 1e-12
+
+
+@pytest.mark.parametrize("rows", [DENSE_SOLVE_MAX_ROWS,
+                                  DENSE_SOLVE_MAX_ROWS + 1])
+def test_dense_sparse_rule_at_its_boundary(chain, rows, monkeypatch):
+    """``exact_ground_state`` on the chain's first 2,048 states solves a
+    dense array, on 2,049 a sparse matrix: either way the lowest
+    eigenvalue of the same block of the projected H to 1e-10."""
+    h, basis, M, _, _ = chain
+    sub = basis[:rows]
+    seen = _watch_lowest_pairs(monkeypatch)
+    vals, vecs = h.exact_ground_state(sub, k=1)
+    assert len(seen) == 1 and vecs.shape == (rows, 1)
+    assert isinstance(seen[0], np.ndarray) == (rows <= DENSE_SOLVE_MAX_ROWS)
+    assert sp.issparse(seen[0]) == (rows > DENSE_SOLVE_MAX_ROWS)
+    want = np.linalg.eigvalsh(M[:rows, :rows].toarray())[0]
+    assert abs(vals[0] - want) < 1e-10
 
 
 def _watched_eigsh(asked, v0=None):

@@ -263,14 +263,6 @@ def test_compute_ground_state_energy_return_vector():
     assert abs(v @ H @ v - e) < 1e-7 and abs(v @ v - 1.0) < 1e-12
 
 
-def test_device_ground_state_matches_eigsh():
-    h = create_lih_hamiltonian("cpu")
-    basis = h.enumerate_basis()
-    vals, vecs = h._device_ground_state(basis)
-    assert abs(float(vals[0]) - h.fci_energy()) < REFINED_TOL
-    assert vecs.shape == (len(basis), 1)
-
-
 # ---------------------------------------------------------------------------
 # Memory sizing
 # ---------------------------------------------------------------------------
