@@ -494,8 +494,9 @@ def sweep_words(kind, n, tile_bits):
     X words at half angle (h = 0.5, dt = 0.1/8) inside a 2^tile_bits
     tile; ``mixed`` adds XX and YY on neighbouring bits and a single Y
     whose Z mask reaches the top qubit, outside the tile; ``tfim_high`` is
-    TFIM's X words on bits 14..n-1 forward then reversed, as the Trotter
-    substep runs them; ``mixed_high`` has X on bits 13..n-1, XX and YY on
+    TFIM's X words on bits 14..n-1 at half angle forward then reversed,
+    as a non-commuting substep orders its words (TFIM's own substep
+    applies each X once at full angle); ``mixed_high`` has X on bits 13..n-1, XX and YY on
     neighbouring bits from 13|14 up and a Y whose Z mask reaches bit 0 and
     the top qubit."""
     if kind == "tfim":

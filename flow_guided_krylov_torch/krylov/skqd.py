@@ -370,6 +370,34 @@ def _fused_substep(steps, phase):
     return substep
 
 
+def _half_angle_words(offd, dt_sub: float):
+    """Every (c, x_mask, z_mask, n_y) term of ``offd`` at half angle
+    c * dt_sub / 2, then the same list reversed: a second-order substep's
+    words for any terms, and the mesh's (``parallel/sharded_trotter``)."""
+    seq = [(c * dt_sub / 2, xm, zm, ny) for c, xm, zm, ny in offd]
+    return seq + seq[::-1]
+
+
+def _substep_words(offd, dt_sub: float):
+    """(words, commuting): the off-diagonal word list of one substep.
+
+    When every term of ``offd`` commutes with every other (the symplectic
+    product popcount((x1 & z2) ^ (z1 & x2)) even), the forward and
+    reversed half-angle products are one product of commuting
+    exponentials, so each distinct word is applied once at its full angle
+    c * dt_sub, the angles of a repeated word summed, in the order of its
+    first appearance.  Otherwise the list is :func:`_half_angle_words`."""
+    commuting = all(((x1 & z2) ^ (z1 & x2)).bit_count() % 2 == 0
+                    for i, (_, x1, z1, _) in enumerate(offd)
+                    for _, x2, z2, _ in offd[i + 1:])
+    if not commuting:
+        return _half_angle_words(offd, dt_sub), False
+    angles = {}
+    for c, xm, zm, ny in offd:
+        angles[xm, zm, ny] = angles.get((xm, zm, ny), 0.0) + c * dt_sub
+    return [(theta,) + key for key, theta in angles.items()], True
+
+
 # ---------------------------------------------------------------------------
 # SKQD
 # ---------------------------------------------------------------------------
@@ -537,7 +565,7 @@ class SampleBasedKrylovDiagonalization:
 
     def _trotter_ops(self):
         """One second-order Trotter substep over the Hamiltonian's Pauli
-        words, built once: diag . sweep(seq) . sweep(reversed(seq)) . diag.
+        words, built once: diag . sweeps(words) . diag.
 
         * diag: every diagonal word (x_mask == 0) folds into one
           half-phase exp(-i dt/2 * D).  On a card it is a class index of
@@ -549,18 +577,24 @@ class SampleBasedKrylovDiagonalization:
           it is a (cos, -sin) float32 pair of 2^n tables applied by
           :func:`_diag_mul` around the sweeps.  Both round alike, so the
           states are equal bit for bit.
-        * seq: the off-diagonal words at half angle, first those whose
-          x_mask lies inside the contiguous tile, 0 < x_mask <
-          2^min(TILE_BITS, n) (low), then the others (high).  seq then
-          reversed(seq) is one list that ``plan_sweeps`` cuts, without
-          reordering, into gathered-tile sweeps: three launches at TFIM-24
-          (the 14 low words on bits 0..13, the 20 high ones on bits
-          {0..3, 14..23}, the low words reversed).  On the CPU the list is
-          the same chain of ``_pauli_rotation_pair`` calls.
+        * words: the off-diagonal words, first those whose x_mask lies
+          inside the contiguous tile, 0 < x_mask < 2^min(TILE_BITS, n)
+          (low), then the others (high); ``plan_sweeps`` cuts the list,
+          without reordering, into gathered-tile sweeps
+          (``trotter.substep_launches`` counts them).  When every word
+          commutes with every other (TFIM's single-site X's), the list is
+          each distinct word once at its full angle
+          (``trotter.commuting_words``; :func:`_substep_words`): three
+          launches at TFIM-28 (bits 0..13, {0..3, 14..23}, {0..9,
+          24..27}), two from 15 to 24 sites.  This equals the forward and
+          reversed half-angle product in exact arithmetic.  Otherwise it
+          is that product: the words at half angle, then the same list
+          reversed.  On the CPU the list is the same chain of
+          ``_pauli_rotation_pair`` calls.
 
-        A forward-then-reversed sweep is second order for any order of
-        the words.  When every word is low, this is the JAX package's
-        fused substep; otherwise it is its ``FGK_PALLAS_SWEEP`` order.
+        Both lists are second order for any order of the words.  The JAX
+        package applies the forward and reversed half-angle list for
+        every model.
         """
         if self._trotter is None:
             with span("skqd.trotter_build", sync=True):
@@ -590,12 +624,15 @@ class SampleBasedKrylovDiagonalization:
 
             sharded.block_runs = step.block_runs
             return sharded
-        seq = [(c * dt_sub / 2, xm, zm, ny) for c, xm, zm, ny in offd]
-        sweeps = make_gathered_sweeps(n, seq + seq[::-1])
+        words, commuting = _substep_words(offd, dt_sub)
+        sweeps = make_gathered_sweeps(n, words)
         if _fuses_half_phase(self.device) and sweeps.steps:
             phase = half_phase_classes(diag, n, dt_sub, self.device)
             if phase is not None:
                 count("trotter.phase_classes", phase.table.shape[0])
+                if commuting:
+                    count("trotter.commuting_words", len(words))
+                count("trotter.substep_launches", len(sweeps.steps))
                 return _fused_substep(sweeps.steps, phase)
             count("trotter.phase_fallback")
         hp_re, hp_im = _half_phase(diag, n, dt_sub, self.device)

@@ -18,8 +18,11 @@ times, with CUDA events:
 One entry is the unsharded path.  A logical mesh repeats the first
 device (the cost of sharding alone); where the host has that many cards,
 a second row spreads the entries over ``cuda:0..``.  Each sharded result
-is held to the unsharded one: the evolve bit for bit, as ``chip_smoke.py``'s
-``phase_mesh`` holds it; each row block's elements and targets bit for
+is held to the unsharded one: the evolve to ``EVOLVE_ATOL``, as
+``chip_smoke.py``'s ``phase_mesh`` holds it (the mesh rotates every X at
+half angle forward then reversed, the single card each commuting X once
+at its full angle: one product in exact arithmetic, rounded apart in
+float32); each row block's elements and targets bit for
 bit to the whole table's; the product to ``MATVEC_RTOL`` of its largest
 entry, since each block computes its own float32 diagonal
 (``ops/slater.diagonal_batch``, a matrix product whose rounding on the
@@ -42,6 +45,7 @@ __all__ = ["ENTRIES", "meshes", "scaling", "main"]
 
 ENTRIES = (1, 2, 4)
 MATVEC_RTOL = 1e-6       # sharded against unsharded product, of its max
+EVOLVE_ATOL = 1e-5       # sharded against unsharded evolve, per amplitude
 
 
 def meshes(device, entries=ENTRIES) -> List[Dict]:
@@ -129,7 +133,7 @@ def scaling(device, sites: int = 24, molecule: str = "n2",
                                              e0[:, row0:row0 + r].cpu())
                                  and torch.equal(t[:, :r].cpu(),
                                                  t0[:, row0:row0 + r].cpu()))
-        if (evolve_gap != 0.0 or matvec_rel_gap > MATVEC_RTOL
+        if (evolve_gap > EVOLVE_ATOL or matvec_rel_gap > MATVEC_RTOL
                 or not tables_equal):
             raise RuntimeError(f"{m['layout']}: sharded against unsharded "
                                f"evolve {evolve_gap}, matvec "

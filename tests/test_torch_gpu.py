@@ -171,14 +171,16 @@ def test_x_sweep_wrapper_rejects_bad_input(card):
     assert xs.x_sweep_cuda.launches == launches
 
 
-def test_trotter_evolve_on_card_matches_cpu(card):
-    """TFIM-18 with the default tile: the low words go through the kernel
-    on the card and through the plain version on the CPU, in the same
-    order.  Both take the half-phase's cos and sin in float64 on the host
-    and round every product and sum alike, so the states are equal."""
+@pytest.mark.parametrize("n", [18, 20], ids=["tfim18", "tfim20"])
+def test_trotter_evolve_on_card_matches_cpu(card, n):
+    """TFIM-18 and TFIM-20 with the default tile: the words go through the
+    kernel on the card (the half-phase inside the first and last launch)
+    and through the plain version on the CPU, in the same order.  Both
+    take the half-phase's cos and sin in float64 on the host and round
+    every product and sum alike, so the states are equal."""
     from flow_guided_krylov_torch import krylov
     from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
-    n, start = 18, 0
+    start = 0
     out = {}
     for dev in ("cpu", "cuda"):
         s = krylov.SampleBasedKrylovDiagonalization(
@@ -192,9 +194,9 @@ def test_trotter_evolve_on_card_matches_cpu(card):
         plain = xs._pauli_rotation_pair.cuda_calls
         out[dev] = s._evolve_trotter(re, torch.zeros_like(re))
         launched = xs.x_sweep_cuda.launches - before
-        # a substep: low sweep, one gathered sweep of the high words
-        # (bits 14..17), low sweep reversed
-        assert launched == (3 * s.config.num_trotter_steps
+        # a substep: the commuting X's once each, the low ones on the
+        # contiguous tile, the high ones (bits 14..n-1) on a gathered tile
+        assert launched == (2 * s.config.num_trotter_steps
                             if dev == "cuda" else 0)
         assert xs._pauli_rotation_pair.cuda_calls == plain
     for c, g in zip(out["cpu"], out["cuda"]):
@@ -358,8 +360,8 @@ def test_fused_half_phase_on_card_equals_the_card_chain(card, monkeypatch,
     (``_diag_mul`` -> sweeps -> ``_diag_mul``): TFIM and Heisenberg with
     a field (words past the contiguous tile, the hoisted order).  The
     card's class build equals the plain one, and one evolve counts
-    ``trotter.phase_launches`` = 2 x 8 substeps and the build's
-    classes."""
+    ``trotter.phase_launches`` = 2 x 8 substeps and the build's classes,
+    launches and, for TFIM, commuting words."""
     from torch.profiler import ProfilerActivity, profile
     from flow_guided_krylov_torch.krylov import skqd as skqd_mod
     from flow_guided_krylov_torch.utils import profiling
@@ -385,8 +387,11 @@ def test_fused_half_phase_on_card_equals_the_card_chain(card, monkeypatch,
         profiling.reset()
     assert xs.x_sweep_cuda.launches - before == 8 * len(fused._trotter.parts)
     assert len(fused._trotter.parts) > 1
+    commuting = {"trotter.commuting_words": n} if model == "tfim" else {}
     assert counters == {"trotter.phase_launches": 2 * 8,
-                        "trotter.phase_classes": phase.table.shape[0]}
+                        "trotter.phase_classes": phase.table.shape[0],
+                        "trotter.substep_launches":
+                            len(fused._trotter.parts), **commuting}
     monkeypatch.setattr(skqd_mod, "_fuses_half_phase", lambda device: False)
     chain, _ = _spin_skqd(model, n, "cuda")
     want = chain._evolve_trotter(re, im)
@@ -1000,14 +1005,15 @@ def test_sharded_ell_evolve_on_card_is_bit_equal(card):
     assert np.array_equal(out, one.evolve(psi))
 
 
-def test_sharded_trotter_block_tables_on_card(card):
+def test_sharded_trotter_block_tables_on_card(card, monkeypatch):
     """TFIM-16 over four blocks on the card: the per-block x_sweep tables
     (the Z bits above the block folded into theta) give the plain
     rotations' bits, block by block, and the sharded substep the
-    single-device one's."""
+    single-device one's on the mesh's word list (the single device's own
+    list, each commuting X once at full angle, to float32 rounding)."""
     from flow_guided_krylov_torch.hamiltonians import TransverseFieldIsing
     from flow_guided_krylov_torch.krylov import (
-        SampleBasedKrylovDiagonalization, SKQDConfig)
+        SampleBasedKrylovDiagonalization, SKQDConfig, skqd)
     from flow_guided_krylov_torch.parallel import (gather_statevector,
                                                    make_mesh,
                                                    make_sharded_substep,
@@ -1036,13 +1042,18 @@ def test_sharded_trotter_block_tables_on_card(card):
     h = TransverseFieldIsing(16, h=0.5, device="cuda")
     cfg = SKQDConfig(evolution="trotter", num_trotter_steps=2)
     init = np.array([0], np.uint32)
+    own = SampleBasedKrylovDiagonalization(h, cfg, initial_state=init)
     one = SampleBasedKrylovDiagonalization(h, cfg, initial_state=init)
     sk = SampleBasedKrylovDiagonalization(h, cfg, initial_state=init,
                                           mesh=mesh)
+    r0, i0 = own._evolve_trotter(v[0].contiguous(), v[1].contiguous())
+    monkeypatch.setattr(skqd, "_substep_words", lambda offd, dt: (
+        skqd._half_angle_words(offd, dt), False))
     r1, i1 = one._evolve_trotter(v[0].contiguous(), v[1].contiguous())
     r2, i2 = gather_statevector(mesh, *sk._evolve_trotter(
         *shard_statevector(mesh, v[0].contiguous(), v[1].contiguous())))
     assert (r1 - r2).abs().max() <= 1e-6 and (i1 - i2).abs().max() <= 1e-6
+    assert (r0 - r2).abs().max() <= 1e-5 and (i0 - i2).abs().max() <= 1e-5
 
 
 def test_w4_cache_on_card_matches_cpu(card):

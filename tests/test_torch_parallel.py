@@ -275,20 +275,26 @@ def test_sharded_trotter_substep_matches_jax(mesh, jmesh):
     assert np.abs(i.numpy() - np.asarray(jim)).max() < TROTTER_TOL
 
 
-def test_sharded_trotter_skqd_equals_single_device(mesh):
+def test_sharded_trotter_skqd_equals_single_device(mesh, monkeypatch):
     """SKQD's Trotter path with the mesh: the same evolve bits and the
-    same samples as without (TFIM-10, 8 blocks)."""
+    same samples as without on the mesh's word list (TFIM-10, 8 blocks).
+    The single card's own list, each commuting X once at full angle, is
+    the same product in exact arithmetic: equal to float32 rounding."""
     h = pspin.TransverseFieldIsing(10, V=1.0, h=0.5, periodic=True,
                                    device="cpu")
     init = np.array([0], np.uint32)
     cfg = psk.SKQDConfig(evolution="trotter", max_krylov_dim=4,
                          shots_per_krylov=5000, num_trotter_steps=4, seed=7)
+    own = psk.SampleBasedKrylovDiagonalization(h, cfg, initial_state=init)
     one = psk.SampleBasedKrylovDiagonalization(h, cfg, initial_state=init)
     sk = psk.SampleBasedKrylovDiagonalization(h, cfg, initial_state=init,
                                               mesh=mesh)
     assert sk.use_trotter and sk._sharded_statevector()
     re = torch.zeros(1024)
     re[0] = 1.0
+    r0, i0 = own._evolve_trotter(re, torch.zeros(1024))
+    monkeypatch.setattr(psk, "_substep_words", lambda offd, dt: (
+        psk._half_angle_words(offd, dt), False))
     r1, i1 = one._evolve_trotter(re, torch.zeros(1024))
     rb, ib = sk._evolve_trotter(*par.shard_statevector(mesh, re,
                                                        torch.zeros(1024)))
@@ -297,6 +303,8 @@ def test_sharded_trotter_skqd_equals_single_device(mesh):
     a, b = one.run(), sk.run()
     assert a["samples"] == b["samples"]
     assert a["final_energy"] == b["final_energy"]
+    np.testing.assert_allclose(r0.numpy(), r2.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(i0.numpy(), i2.numpy(), rtol=0, atol=1e-6)
 
 
 def test_sharded_pt2_scoring_matches_single_device(lih, mesh):

@@ -12,15 +12,17 @@ and 2^26 identity tables) on a card.  Here, at sizes a CPU holds:
 * the gathered-tile plan of TFIM-28's Trotter words (taken from the
   port's substep builder, no state made), and at 16 sites the plan
   replayed through the plain version against the JAX package's rotation
-  chain;
+  chain (its 32 half-angle rotations against the port's 16 full-angle
+  ones);
 * the full-space device stage at 2^16 on both routes against the JAX
   package's and the free-fermion energy;
 * the phase's glue and checks at TFIM-12/14/16.
 
-Tolerances: a sweep of 32 float32 rotations over unit-variance amplitudes,
+Tolerances: a sweep of 16 full-angle float32 rotations over
+unit-variance amplitudes against the JAX package's 32 half-angle ones,
 the port's cos and sin taken in float64 and rounded, the JAX rotation's in
 float32, held to 1e-5 (the Trotter evolve's bound in
-``tests/test_torch_trotter.py``; they differed by 5.2e-6); a float32
+``tests/test_torch_trotter.py``; they differ by 2.9e-6); a float32
 Lanczos against another package's float32 Lanczos and against the closed
 form, 1e-5 Ha on ``ell-fused`` (fully reorthogonalized, as
 ``tests/test_torch_eigensolvers.py`` holds it) and ``EIGENSOLVER_TOL`` =
@@ -167,9 +169,10 @@ def test_fullspace_plan_on_the_card(n, m, restarts):
 
 def _trotter_words(n, h=0.5):
     """The word list the port's Trotter substep hands to
-    ``make_gathered_sweeps`` (seq, then seq reversed) for TFIM-n, taken
-    from ``_trotter_ops`` with the half phase and the sweeps stubbed: no
-    2^n state is made."""
+    ``make_gathered_sweeps`` for TFIM-n, taken from ``_trotter_ops`` with
+    the half phase and the sweeps stubbed: no 2^n state is made.  TFIM's
+    off-diagonal words (one X a site) commute, so the list is each X once
+    at its full angle, low-tile words first."""
     s = skqd.SampleBasedKrylovDiagonalization(
         _tfim(n, h), skqd.SKQDConfig(evolution="trotter"),
         initial_state=np.array([0], np.uint32))
@@ -183,37 +186,35 @@ def _trotter_words(n, h=0.5):
 
 
 def test_tfim28_trotter_plan_covers_every_word():
-    """TFIM-28's 28 X words, forward then reversed: five gathered tiles,
-    every word in one of them once and in order, each tile's table one
-    the kernel takes, so no word is left to a plain rotation."""
+    """TFIM-28's 28 X words, each once at its full angle: three gathered
+    tiles of 14, 10 and 4 words, every word in one of them once and in
+    order, each tile's table one the kernel takes, so no word is left to
+    a plain rotation."""
     n = 28
     words = _trotter_words(n)
-    half = words[:n]
-    assert words[n:] == half[::-1]
-    assert [w[1] for w in half] == [1 << q for q in range(n)]
-    assert all(w[0] == -0.5 * 0.1 / 8 / 2 and w[2:] == (0, 0)
-               for w in half)
+    assert [w[1] for w in words] == [1 << q for q in range(n)]
+    assert all(w[0] == -0.5 * 0.1 / 8 and w[2:] == (0, 0) for w in words)
     plan = xs.plan_sweeps(words, n)
     assert [w for _, ws in plan for w in ws] == words
-    assert [len(ws) for _, ws in plan] == [14, 10, 14, 10, 8]
+    assert [len(ws) for _, ws in plan] == [14, 10, 4]
     low = tuple(range(4))
     assert [tile for tile, _ in plan] == [
         tuple(range(14)), low + tuple(range(14, 24)),
-        low + tuple(range(18, 28)), low + tuple(range(8, 18)),
-        tuple(range(14))]
+        tuple(range(10)) + tuple(range(24, 28))]
     for tile, ws in plan:
         mask = sum(1 << q for q in tile)
         assert len(tile) == xs.TILE_BITS
         assert all(w[1] & ~mask == 0 for w in ws)
         assert xs.sweep_table(ws, n, tile).shape == (len(ws), 8)
-    # the smoke's launch count: 15 evolves x 8 substeps x 5 tiles
-    assert 15 * 8 * len(plan) == 600
+    # the cell's launch count: 15 evolves x 8 substeps x 3 tiles
+    assert 15 * 8 * len(plan) == 360
 
 
 def test_tfim16_plan_replay_matches_jax_rotation_chain():
-    """The same planner at 16 sites: the word list is the JAX package's
-    (low, high, high reversed, low reversed), and the plan's tiles run
-    through the plain version equal the JAX rotations one by one."""
+    """The same planner at 16 sites: the port's 16 full-angle words in two
+    tiles, run through the plain version, equal the JAX package's 32
+    half-angle rotations (low, high, high reversed, low reversed) one by
+    one: the same product in exact arithmetic."""
     n = 16
     words = _trotter_words(n)
     coeffs, paulis = jspin.extract_coeffs_and_paulis(
@@ -222,15 +223,15 @@ def test_tfim16_plan_replay_matches_jax_rotation_chain():
             if jax_masks(p)[0]]
     low = [w for w in offd if w[1] < 1 << xs.TILE_BITS]
     high = [w for w in offd if w[1] >= 1 << xs.TILE_BITS]
-    assert words == low + high + high[::-1] + low[::-1]
-    assert len(xs.plan_sweeps(words, n)) == 3
+    assert words == [(2 * w[0],) + w[1:] for w in low + high]
+    assert len(xs.plan_sweeps(words, n)) == 2
     rng = np.random.default_rng(5)
     re0 = rng.normal(size=1 << n).astype(np.float32)
     im0 = rng.normal(size=1 << n).astype(np.float32)
     pr, pi = xs.make_gathered_sweeps(n, words)(torch.as_tensor(re0),
                                                torch.as_tensor(im0))
     jr, ji = jnp.asarray(re0), jnp.asarray(im0)
-    for theta, xm, zm, ny in words:
+    for theta, xm, zm, ny in low + high + high[::-1] + low[::-1]:
         jr, ji = jax_rotation(jr, ji, jnp.float32(theta), xm, zm, ny, n)
     np.testing.assert_allclose(pr.numpy(), np.asarray(jr), rtol=0,
                                atol=SWEEP_TOL)

@@ -94,13 +94,23 @@ def test_ccsd_bar_prints_the_ccsd_energy():
                    "wall_s": got["wall_s"]}
 
 
-def test_sharded_scaling_runs_on_a_cpu_mesh():
-    rows = sharded_scaling.scaling("cpu", sites=10, molecule="lih", reps=1,
-                                   entries=(1, 2))
+def test_sharded_scaling_runs_on_a_cpu_mesh(monkeypatch):
+    """With the single card on the mesh's word list the sharded evolve
+    equals it bit for bit; on its own list (TFIM's commuting X's once at
+    full angle) the tool holds it to ``EVOLVE_ATOL``."""
+    from flow_guided_krylov_torch.krylov import skqd
+    with monkeypatch.context() as m:
+        m.setattr(skqd, "_substep_words", lambda offd, dt: (
+            skqd._half_angle_words(offd, dt), False))
+        rows = sharded_scaling.scaling("cpu", sites=10, molecule="lih",
+                                       reps=1, entries=(1, 2))
     assert [r["entries"] for r in rows] == [1, 2]
     assert rows[1]["layout"] == "2 x cpu"
     assert all(r["evolve_gap"] == 0.0 and r["matvec_rel_gap"] == 0.0
                and r["trotter_evolve_ms"] is None for r in rows)
+    rows = sharded_scaling.scaling("cpu", sites=10, molecule="lih", reps=1,
+                                   entries=(1, 2))
+    assert rows[1]["evolve_gap"] <= sharded_scaling.EVOLVE_ATOL
 
 
 @pytest.mark.parametrize("name", TOOLS)

@@ -12,10 +12,14 @@ takes cos and sin in float64 and rounds them (as the Pallas kernel does),
 where the JAX rotation takes them in float32.  Sweeps agree to about 1e-8
 and are held to the JAX test's 2e-6; single rotations are held to 1e-6.
 A Trotter evolve chains 8 substeps of up to 68 rotations; the two
-packages' states differed by 0.9e-6 (TFIM-12) and 1.7e-6
-(Heisenberg-hx-12), and are held to 1e-5.  At 12 sites every word lies
-inside the sweep's tile of 2^14 amplitudes; at 16 sites the words that
-flip bit 14 or 15 leave it for the plain rotations.
+packages' states differed by 1.2e-6 (TFIM-12, the port's commuting words
+once at full angle against the JAX package's half-angle pairs) and
+1.7e-6 (Heisenberg-hx-12), and are held to 1e-5; over three TFIM evolves
+at 16 and 18 sites they differed by 0.7e-6 and 2.4e-6, and the port
+differed from the benchmark's float64 reference by 4.9e-6 (16 sites) and
+5.5e-6 (20).  At 12 sites every word lies inside the sweep's contiguous
+tile of 2^12 amplitudes; at 16 sites the words that flip bit 14 or 15 go
+to a gathered tile.
 """
 
 import numpy as np
@@ -218,8 +222,10 @@ def test_half_phase_is_rounded_float64(trotter_pair):
 
 
 def test_trotter_evolve_matches_jax_fused(trotter_pair):
-    """n <= TILE_BITS: every word goes through the sweep, in the JAX
-    package's fused-substep order."""
+    """n <= TILE_BITS: every word goes through one sweep, against the JAX
+    package's fused substep (Heisenberg's words in its order; TFIM's
+    commuting words once at full angle, the same product in exact
+    arithmetic)."""
     js, ps, start = trotter_pair
     assert N <= xs.TILE_BITS
     re, im = _start_pair(ps, start)
@@ -232,9 +238,10 @@ def test_trotter_evolve_matches_jax_fused(trotter_pair):
 
 def test_trotter_evolve_hoisted_order_matches_jax(hoisted_pair):
     """n = 16 > TILE_BITS = 14: words that flip bit 14 or 15 leave the
-    sweep, so the substep is diag . low . high . reversed(high) .
-    reversed(low) . diag.  The JAX side is the same composition of its
-    rotations."""
+    contiguous tile, so the JAX side is diag . low . high . reversed(high)
+    . reversed(low) . diag, rotation by rotation: the port's substep for
+    Heisenberg, and for TFIM the same product in exact arithmetic (each
+    commuting X once at full angle)."""
     js, ps, start = hoisted_pair
     n = ps.h.n_sites
     _, hr, hi = js._trotter_ops()
@@ -315,17 +322,19 @@ def _profiled_evolves(s, start, evolves):
 
 
 @pytest.mark.parametrize("model,n,launches", [
-    ("tfim", 12, 1), ("tfim", 16, 3), ("heisenberg_field", 16, 3)],
+    ("tfim", 12, 1), ("tfim", 16, 2), ("heisenberg_field", 16, 3)],
     ids=["tfim12-one_launch", "tfim16-hoisted", "heisenberg_field16-hoisted"])
 def test_fused_half_phase_counts_and_equals_the_chain(monkeypatch, model, n,
                                                       launches):
     """The substep with its half-phase inside the first and last sweep
     (the card's path, run here through the plain version) equals the
     chain of 2^n tables bit for bit over two evolves, in ``launches``
-    sweeps a substep (one at 12 sites carries both ends), and counts the
-    build's distinct angles once.  It keeps no 2^n table: ``_half_phase``
-    is not called.  ``trotter.phase_launches`` counts kernel launches,
-    so the plain version adds none (the card's test counts them)."""
+    sweeps a substep (one at 12 sites carries both ends; TFIM's commuting
+    words once each, Heisenberg's forward and reversed), and counts the
+    build's distinct angles, its launches and, for TFIM, its commuting
+    words once.  It keeps no 2^n table: ``_half_phase`` is not called.
+    ``trotter.phase_launches`` counts kernel launches, so the plain
+    version adds none (the card's test counts them)."""
     chain, start = _port_skqd(model, n)
     want, counters = _profiled_evolves(chain, start, 2)
     assert not any(k.startswith("trotter.") for k in counters)
@@ -338,9 +347,152 @@ def test_fused_half_phase_counts_and_equals_the_chain(monkeypatch, model, n,
     assert fused._trotter.parts[0].keywords["at"] == (
         xs.PHASE_LOAD | (xs.PHASE_STORE if launches == 1 else 0))
     assert fused._trotter.parts[-1].keywords["at"] & xs.PHASE_STORE
-    assert counters == {"trotter.phase_classes": classes.table.shape[0]}
+    commuting = {"trotter.commuting_words": n} if model == "tfim" else {}
+    assert counters == {"trotter.phase_classes": classes.table.shape[0],
+                        "trotter.substep_launches": launches, **commuting}
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _substep_list(s, monkeypatch):
+    """The word list ``s``'s ``_build_trotter_ops`` hands to the planner
+    (the real sweeps are built from it)."""
+    got = []
+    real = skqd.make_gathered_sweeps
+
+    def spy(n, words):
+        got.append(list(words))
+        return real(n, words)
+
+    monkeypatch.setattr(skqd, "make_gathered_sweeps", spy)
+    s._trotter_ops()
+    assert len(got) == 1
+    return got[0]
+
+
+def _with_extra_words(monkeypatch, extra):
+    """``_build_trotter_ops`` reads the Hamiltonian's terms and ``extra``
+    (coefficient, Pauli word) terms after them."""
+    real = skqd.extract_coeffs_and_paulis
+
+    def terms(h):
+        coeffs, words = real(h)
+        return (coeffs + [c for c, _ in extra],
+                words + [w for _, w in extra])
+
+    monkeypatch.setattr(skqd, "extract_coeffs_and_paulis", terms)
+
+
+def _half_angle_chain(s, start, n, evolves=1):
+    """``evolves`` evolves of 8 substeps from ``start``: the 2^n half-phase
+    tables around every off-diagonal term at half angle, forward then
+    reversed, rotation by rotation; the terms low-tile first, as
+    ``_build_trotter_ops`` orders them."""
+    dt = 0.1 / 8
+    coeffs, paulis = skqd.extract_coeffs_and_paulis(s.h)
+    offd = [(c * dt / 2,) + xs._pauli_masks(p)
+            for c, p in zip(coeffs, paulis) if xs._pauli_masks(p)[0]]
+    tile = 1 << min(xs.TILE_BITS, n)
+    seq = ([w for w in offd if w[1] < tile]
+           + [w for w in offd if w[1] >= tile])
+    hr, hi = skqd._half_phase(_diag_words(s), n, dt, "cpu")
+    re, im = _start_pair(s, start)
+    for _ in range(8 * evolves):
+        re, im = skqd._diag_mul(re, im, hr, hi)
+        for w in seq + seq[::-1]:
+            re, im = xs._pauli_rotation_pair(re, im, *w, n)
+        re, im = skqd._diag_mul(re, im, hr, hi)
+    return (re, im), seq
+
+
+@pytest.mark.parametrize("n", [16, 18], ids=["tfim16", "tfim18"])
+def test_commuting_substep_matches_jax_substep(monkeypatch, n):
+    """TFIM at two tiles: three evolves of the port's substep, each X
+    once at its full angle, equal the JAX package's fused substep (each X
+    at half angle, forward then reversed) evolve by evolve, the same
+    product in exact arithmetic."""
+    js, ps, start = _skqd_pair("tfim", n)
+    words = _substep_list(ps, monkeypatch)
+    assert len(words) == n and len(xs.plan_sweeps(words, n)) == 2
+    re, im = _start_pair(ps, start)
+    jr = jnp.zeros(js.dim, jnp.float32).at[start].set(1.0)
+    ji = jnp.zeros(js.dim, jnp.float32)
+    for _ in range(3):
+        re, im = ps._evolve_trotter(re, im)
+        jr, ji = js._evolve_trotter(jr, ji)
+        np.testing.assert_allclose(re.numpy(), np.asarray(jr), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(im.numpy(), np.asarray(ji), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [16, 20], ids=["tfim16", "tfim20"])
+def test_commuting_substep_matches_float64_reference(n):
+    """Three evolves of the port's TFIM substep against the benchmark's
+    float64 Trotter reference (``perfbench/reference/tfim.py``, one
+    full-angle field layer a substep; it applies the field in blocks of
+    four sites, so n is a multiple of 4)."""
+    from perfbench.reference.tfim import krylov_states
+    s, start = _port_skqd("tfim", n)
+    re, im = _start_pair(s, start)
+    for _, want_re, want_im in krylov_states(n, 1.0, 0.5, 0.1, 8, 3, "cpu"):
+        re, im = s._evolve_trotter(re, im)
+        np.testing.assert_allclose(re.double().numpy(), want_re.numpy(),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(im.double().numpy(), want_im.numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("heisenberg_field", []), ("tfim", [(0.2, "IIIY" + "I" * (N - 4))])],
+    ids=["heisenberg_field12", "tfim12_and_y3"])
+def test_noncommuting_words_keep_the_half_angle_list(monkeypatch, model,
+                                                     extra):
+    """One anticommuting pair is enough to keep the list: Heisenberg's
+    bonds, and TFIM's X words with a Y on site 3 (which anticommutes with
+    X_3 alone), give the half-angle words then the same reversed, and the
+    evolve equals that list's rotation chain bit for bit.  On the card's
+    path the build counts its launches and no commuting words."""
+    _with_extra_words(monkeypatch, extra)
+    s, start = _port_skqd(model, N)
+    want, seq = _half_angle_chain(s, start, N)
+    anti = sum(((a[1] & b[2]) ^ (a[2] & b[1])).bit_count() & 1
+               for i, a in enumerate(seq) for b in seq[i + 1:])
+    assert anti == 1 if extra else anti > 1
+    assert _substep_list(s, monkeypatch) == seq + seq[::-1]
+    got = s._evolve_trotter(*_start_pair(s, start))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    monkeypatch.setattr(skqd, "_fuses_half_phase", lambda device: True)
+    fused, _ = _port_skqd(model, N)
+    _, counters = _profiled_evolves(fused, start, 1)
+    assert "trotter.commuting_words" not in counters
+    assert counters["trotter.substep_launches"] == 1
+
+
+def test_repeated_commuting_word_takes_the_summed_angle(monkeypatch):
+    """TFIM-12 with a second X on site 5: X_5 is applied once, in its
+    first place, at the sum of its two angles, and the evolve equals the
+    half-angle forward and reversed chain of all 13 terms to float32
+    rounding.  The card's path counts 12 commuting words."""
+    dt = 0.1 / 8
+    _with_extra_words(monkeypatch, [(-0.3, "IIIIIX" + "I" * (N - 6))])
+    s, start = _port_skqd("tfim", N)
+    words = _substep_list(s, monkeypatch)
+    assert [w[1:] for w in words] == [(1 << q, 0, 0) for q in range(N)]
+    assert [w[0] for w in words] == [
+        -0.5 * dt + (-0.3 * dt if q == 5 else 0.0) for q in range(N)]
+    want, seq = _half_angle_chain(s, start, N, evolves=2)
+    assert len(seq) == N + 1
+    re, im = _start_pair(s, start)
+    for _ in range(2):
+        re, im = s._evolve_trotter(re, im)
+    for g, w in zip((re, im), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+    monkeypatch.setattr(skqd, "_fuses_half_phase", lambda device: True)
+    fused, _ = _port_skqd("tfim", N)
+    _, counters = _profiled_evolves(fused, start, 1)
+    assert counters["trotter.commuting_words"] == N
 
 
 def test_phase_fallback_past_the_class_cap(monkeypatch):
