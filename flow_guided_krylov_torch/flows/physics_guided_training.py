@@ -47,7 +47,7 @@ from ..ops.bits import (keys_device, to_device, to_host, unkey_device,
                         unpack_device)
 from ..parallel.mesh import canonical
 from ..parallel.mesh import to as mesh_to
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ..utils.system_scaler import AdaptiveAdjuster
 
 __all__ = ["PhysicsGuidedConfig", "PhysicsGuidedFlowTrainer",
@@ -207,8 +207,13 @@ class PhysicsGuidedFlowTrainer:
         self._h_dense: Optional[torch.Tensor] = None
         if c.use_connection_table:
             from ..utils.connection_table import build_connection_table
-            self.connection_table = build_connection_table(
-                hamiltonian, max_entries=c.connection_table_max_entries)
+            with span("stage1.table_build", sync=True):
+                self.connection_table = build_connection_table(
+                    hamiltonian, max_entries=c.connection_table_max_entries)
+            if self.connection_table is not None:
+                t = self.connection_table
+                count("ctable.rows", t.n_configs)
+                count("ctable.entries", t.n_configs * t.n_connections)
             if (self.connection_table is not None
                     and self.connection_table.n_configs
                     <= c.dense_local_energy_max_dim):
@@ -293,29 +298,35 @@ class PhysicsGuidedFlowTrainer:
     def local_energies(self, packed_u: torch.Tensor, la_x: torch.Tensor
                        ) -> torch.Tensor:
         """E_loc(x) = sum_y H_xy psi(y) / psi(x) of (B, 2) int64 words,
-        given their log-amplitudes ``la_x``, on this trainer's route."""
-        n_sites = 2 * self.h.n_orbitals
-        if self.route == "dense":
-            t = self.connection_table
-            idx = t.lookup(packed_u)
-            la_all = self._nqs_chunked(t.occ)
-            psi = torch.exp(la_all - la_all.max())
-            if self.mesh is not None:
-                from ..parallel.sharded_matvec import sharded_matvec_fn
-                hpsi = sharded_matvec_fn(self.mesh)(self._h_dense, psi)
+        given their log-amplitudes ``la_x``, on this trainer's route.
+        Under the profiler it is the span ``stage1.local_energy`` and adds
+        the rows its NQS evaluation takes (B x C, or N on ``dense``) to
+        the counter ``stage1.nqs_rows``, counted from shapes."""
+        with span("stage1.local_energy"):
+            n_sites = 2 * self.h.n_orbitals
+            if self.route == "dense":
+                t = self.connection_table
+                idx = t.lookup(packed_u)
+                count("stage1.nqs_rows", t.occ.shape[0])
+                la_all = self._nqs_chunked(t.occ)
+                psi = torch.exp(la_all - la_all.max())
+                if self.mesh is not None:
+                    from ..parallel.sharded_matvec import sharded_matvec_fn
+                    hpsi = sharded_matvec_fn(self.mesh)(self._h_dense, psi)
+                else:
+                    hpsi = self._h_dense @ psi
+                return hpsi[idx] / psi[idx].clamp_min(1e-30)
+            if self.route == "table":
+                diag, elems, occ_y = \
+                    self.connection_table.local_energy_inputs(packed_u)
             else:
-                hpsi = self._h_dense @ psi
-            return hpsi[idx] / psi[idx].clamp_min(1e-30)
-        if self.route == "table":
-            diag, elems, occ_y = \
-                self.connection_table.local_energy_inputs(packed_u)
-        else:
-            diag = self.h.diagonal_device(packed_u)
-            conn, elems = self.h.connections_device(packed_u)
-            occ_y = unpack_device(conn, self.h.n_orbitals)
-        la_y = self._nqs_chunked(occ_y.reshape(-1, n_sites))
-        ratios = torch.exp(la_y.reshape(elems.shape) - la_x[:, None])
-        return diag + (elems * ratios).sum(-1)
+                diag = self.h.diagonal_device(packed_u)
+                conn, elems = self.h.connections_device(packed_u)
+                occ_y = unpack_device(conn, self.h.n_orbitals)
+            count("stage1.nqs_rows", elems.numel())
+            la_y = self._nqs_chunked(occ_y.reshape(-1, n_sites))
+            ratios = torch.exp(la_y.reshape(elems.shape) - la_x[:, None])
+            return diag + (elems * ratios).sum(-1)
 
     def _unique_compact(self, keys: torch.Tensor):
         """Sort (B,) keys and compact the unique ones to the front, padded
@@ -383,8 +394,10 @@ class PhysicsGuidedFlowTrainer:
         energies, both losses and updates, and the accumulated-basis
         merge (``priorities`` (M + B,) replaces the pruning draw).
         Returns the device metrics vector [energy, teacher, physics,
-        entropy, unique ratio, accumulated count]."""
+        entropy, unique ratio, accumulated count]; counts
+        ``stage1.steps`` under the profiler."""
         c = self.config
+        count("stage1.steps")
         B = configs.shape[0]
         keys_u, n_unique, packed_u = self.unique_batch(configs)
         valid = torch.arange(B, device=configs.device) < n_unique

@@ -422,10 +422,14 @@ class SelectedCIExpander:
     def _pt2_candidates(self, basis: np.ndarray, coeffs: np.ndarray,
                         energy: float
                         ) -> Tuple[np.ndarray, np.ndarray]:
-        """Return (candidate dets (M, W), PT2 scores (M,))."""
+        """Return (candidate dets (M, W), PT2 scores (M,)).  Under the
+        profiler it is the span ``sci.score`` (it ends in host reads) and
+        counts ``sci.rounds``, and ``sci.device_rounds`` where the device
+        block scored."""
         t0 = time.perf_counter()
         try:
-            return self._pt2_candidates_timed(basis, coeffs, energy)
+            with span("sci.score"):
+                return self._pt2_candidates_timed(basis, coeffs, energy)
         finally:
             self.timings["score"] += time.perf_counter() - t0
 
@@ -457,7 +461,9 @@ class SelectedCIExpander:
             use_device = (len(src) * self.h.n_connections
                           >= self.DEVICE_SCORING_MIN_ELEMS)
 
+        count("sci.rounds")
         if use_device:
+            count("sci.device_rounds")
             cand_all, coupling_all = self._pt2_topk_device(src, src_c)
             keys = self.h.keys(cand_all)
             # grouped SUM per key: a block returns one row per key, and

@@ -1116,3 +1116,49 @@ def test_tools_time_on_card(card):
                for v in m["variants"].values())
     r = rp.run_block(h, 64, iters=2)
     assert r["ms"] > 0 and r["first_call_s"] > 0
+
+
+# E_loc of N2 (10e, 10o) is ~ -109 Ha, summed over 875 float32 elements
+# times float32 ratios, in another summation order on each device: 2e-6
+# of the largest |E_loc| (~2.2e-4 Ha), as tests/test_torch_stage1_table.py
+# holds the table route to float64
+TABLE_ELOC_RTOL = 2e-6
+
+
+def test_table_local_energies_n2_10o_on_card_match_cpu(card):
+    """N2/cc-pVDZ (10e, 10o), the benchmark's ``n2-ccpvdz-10o``: the
+    trainer takes the connection table (dense cap 0, as one H100's
+    51,548 is below 63,504), on seeded random weights at the published
+    widths (NQS 6 x 512, flow 2 x 384); one batch's local energies on the
+    card against the CPU's."""
+    from flow_guided_krylov_torch.examples.large_system_benchmark import \
+        SYSTEMS
+    from flow_guided_krylov_torch.flows.particle_conserving import \
+        ParticleConservingFlow
+    from flow_guided_krylov_torch.flows.physics_guided_training import (
+        PhysicsGuidedConfig, PhysicsGuidedFlowTrainer)
+    from flow_guided_krylov_torch.models.dense import DenseNQS
+    from flow_guided_krylov_torch.ops.bits import unpack_np
+    out = {}
+    for dev in ("cpu", "cuda"):
+        h = SYSTEMS["n2_ccpvdz_10o"](dev)
+        assert (h.n_valid_configs, h.n_connections) == (63504, 875)
+        tr = PhysicsGuidedFlowTrainer(
+            h, ParticleConservingFlow(10, 5, 5, (384, 384)),
+            DenseNQS(20, (512,) * 6),
+            PhysicsGuidedConfig(samples_per_batch=32,
+                                connection_table_max_entries=63504 * 875,
+                                dense_local_energy_max_dim=0, seed=7,
+                                verbose=False))
+        assert tr.route == "table"
+        basis = h.enumerate_basis()
+        rng = np.random.default_rng(3)
+        packed = basis[np.sort(rng.choice(len(basis), 32, replace=False))]
+        occ = torch.from_numpy(unpack_np(packed, 10)).float().to(dev)
+        with torch.no_grad():
+            out[dev] = tr.local_energies(to_device(packed, dev),
+                                         tr.nqs(occ)).double().cpu().numpy()
+    assert np.isfinite(out["cuda"]).all()
+    np.testing.assert_allclose(
+        out["cuda"], out["cpu"], rtol=0,
+        atol=TABLE_ELOC_RTOL * np.abs(out["cpu"]).max())

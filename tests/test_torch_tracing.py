@@ -345,3 +345,94 @@ def test_restricted_solve_records_its_spans_and_counters():
     assert c["ell.entries"] == dim * h.n_connections
     assert c["pt2.externals"] == pt2[0]["n_external"] > 0
     assert c["pt2.device"] == 1
+
+
+# -- stage 1 on each local-energy route, and one SCI round ---------------
+
+STAGE1_B, STAGE1_EPOCHS = 64, 3
+
+
+def _stage1(route):
+    """A short stage 1 on H2O/STO-3G (441 determinants, 140 connections
+    a row) on ``route``: the trainer built (and its table with it) and
+    trained for ``STAGE1_EPOCHS`` one-step epochs."""
+    from flow_guided_krylov_torch.flows.particle_conserving import \
+        ParticleConservingFlow
+    from flow_guided_krylov_torch.flows.physics_guided_training import \
+        PhysicsGuidedConfig
+    from flow_guided_krylov_torch.models.dense import DenseNQS
+    h = _h2o()
+    cfg = PhysicsGuidedConfig(
+        num_epochs=STAGE1_EPOCHS, min_epochs=STAGE1_EPOCHS,
+        samples_per_batch=STAGE1_B, use_accumulated_energy=False,
+        dense_local_energy_max_dim=0 if route == "table" else 20_000,
+        use_connection_table=route != "fly", seed=4, verbose=False)
+    trainer = PhysicsGuidedFlowTrainer(
+        h, ParticleConservingFlow(7, 5, 5, (16, 16)),
+        DenseNQS(14, (16, 16)), cfg)
+    assert trainer.route == route
+    return trainer.train()["energies"], h
+
+
+@pytest.mark.parametrize("route", ["table", "dense", "fly"])
+def test_stage1_records_its_spans_and_counters(route):
+    """Each step's local energies are one ``stage1.local_energy`` span;
+    the NQS rows counted are the shapes': B x C on ``table`` and ``fly``,
+    N on ``dense``.  The table build is one synchronizing span, its rows
+    and entries counted; recording leaves the energies bit-identical."""
+    off, _ = _stage1(route)
+    (on, h), names = _profiled(_stage1, route)
+    assert on == off
+    snap = profiling.snapshot()
+    spans = {k: v["calls"] for k, v in snap["spans"].items()}
+    c = snap["counters"]
+    N, C = h.n_valid_configs, h.n_connections
+    assert spans["stage1.local_energy"] == STAGE1_EPOCHS
+    assert "stage1.local_energy" in names
+    assert c["stage1.steps"] == STAGE1_EPOCHS
+    rows = N if route == "dense" else STAGE1_B * C
+    assert c["stage1.nqs_rows"] == STAGE1_EPOCHS * rows
+    if route == "fly":
+        assert "stage1.table_build" not in spans and "ctable.rows" not in c
+    else:
+        assert spans["stage1.table_build"] == 1
+        assert (c["ctable.rows"], c["ctable.entries"]) == (N, N * C)
+
+
+def _sci_round(device_scoring):
+    from flow_guided_krylov_torch.krylov.residual_expansion import (
+        ResidualExpansionConfig, SelectedCIExpander)
+    h = _h2o()
+    ex = SelectedCIExpander(h, ResidualExpansionConfig(
+        configs_per_iteration=40, max_basis_size=441),
+        use_device_scoring=device_scoring)
+    out = ex.expand_basis(h.get_hf_state()[None, :])
+    out = ex.expand_basis(out["basis"])
+    return out["energy"], out["basis"]
+
+
+@pytest.mark.parametrize("device_scoring", [True, False],
+                         ids=["device", "host"])
+def test_sci_rounds_record_their_scoring(device_scoring):
+    """Two rounds: each scoring is one ``sci.score`` span and one
+    ``sci.rounds``; ``sci.device_rounds`` counts those the device block
+    scored."""
+    e_off, b_off = _sci_round(device_scoring)
+    (e_on, b_on), names = _profiled(_sci_round, device_scoring)
+    assert e_on == e_off
+    np.testing.assert_array_equal(b_on, b_off)
+    snap = profiling.snapshot()
+    assert snap["spans"]["sci.score"]["calls"] == 2
+    assert "sci.score" in names
+    c = snap["counters"]
+    assert c["sci.rounds"] == 2
+    assert c.get("sci.device_rounds", 0) == (2 if device_scoring else 0)
+
+
+def test_stage1_and_sci_record_nothing_with_recording_off():
+    with mock.patch.object(torch.profiler, "record_function", _raise), \
+            mock.patch.object(torch.cuda, "synchronize", _raise):
+        energies, _ = _stage1("table")
+        e, _ = _sci_round(True)
+    assert len(energies) == STAGE1_EPOCHS and np.isfinite(e)
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
